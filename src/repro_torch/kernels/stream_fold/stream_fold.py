@@ -1,0 +1,125 @@
+"""Wrappers of the CUDA streaming-fold kernels (``csrc/stream_fold.cu``).
+
+The counterparts of ``repro.kernels.stream_fold.stream_fold``'s
+``stream_fold_pallas`` / ``stream_fold_mac_pallas``. A tensor on the CPU
+goes to the plain version in ``ref.py``; a CUDA tensor launches the kernel
+or raises. ``LAUNCHES`` counts kernel launches, one per call that reached
+the card.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.stream_fold.ref import (
+    stream_fold_mac_ref, stream_fold_ref,
+)
+
+LAUNCHES = {"fold": 0, "fold_mac": 0}
+_MAX_SHARED_BYTES = 48 * 1024
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    "stream_fold_f32": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                        ctypes.c_int, _P],
+    "stream_fold_mac_f32": [_P, _P, _P, _P, _P, ctypes.c_longlong,
+                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_float, _P],
+}
+
+
+def _fn(name: str):
+    fn = getattr(_build.load("stream_fold"), name)
+    fn.argtypes = _SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _on_cpu(*ts: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in ts)
+
+
+def _check(ts: dict[str, torch.Tensor], shapes: dict[str, tuple]) -> None:
+    dev = ts["x0"].device
+    for name, t in ts.items():
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}; every input must be "
+                             f"on one CUDA device (x0 is on {dev})")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shapes[name]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(name: str, counter: str, out: torch.Tensor, *args) -> None:
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        rc = _fn(name)(*args, stream)
+    if rc:
+        raise RuntimeError(f"{name} launch failed with cudaError {rc}")
+    LAUNCHES[counter] += 1
+
+
+def stream_fold_cuda(x0: torch.Tensor, deposits: torch.Tensor,
+                     a: torch.Tensor) -> torch.Tensor:
+    """``x ← x·a + deposits[s]`` over all S sub-slots in one launch; bit-exact
+    with :func:`~repro_torch.kernels.stream_fold.ref.stream_fold_ref` on
+    the card. x0 [N, F]; deposits [S, N, F]; a [F] → [N, F]."""
+    if deposits.dim() != 3:
+        raise ValueError(f"deposits must be [S, N, F], got "
+                         f"{tuple(deposits.shape)}")
+    S, N, F = deposits.shape
+    if N * F == 0:
+        raise ValueError("stream_fold needs N > 0 and F > 0")
+    _check({"x0": x0, "deposits": deposits, "a": a},
+           {"x0": (N, F), "deposits": (S, N, F), "a": (F,)})
+    out = torch.empty_like(x0)
+    _launch("stream_fold_f32", "fold", out, x0.data_ptr(), deposits.data_ptr(),
+            a.data_ptr(), out.data_ptr(), N, F, S)
+    return out
+
+
+def stream_fold_mac_cuda(x0: torch.Tensor, patches: torch.Tensor,
+                         w: torch.Tensor, a: torch.Tensor, *,
+                         dv_unit: float) -> torch.Tensor:
+    """The fully fused fold: the deposit ``patches[s] @ w · dv_unit`` is
+    computed in the kernel. x0 [N, F]; patches [S, N, K]; w [K, F]; a [F]
+    → [N, F]. Matches the plain version to summation order (≤ 1e-5)."""
+    if patches.dim() != 3 or w.dim() != 2:
+        raise ValueError(f"patches must be [S, N, K] and w [K, F], got "
+                         f"{tuple(patches.shape)} and {tuple(w.shape)}")
+    S, N, K = patches.shape
+    F = w.shape[1]
+    if N * F * K == 0:
+        raise ValueError("stream_fold_mac needs N, K and F > 0")
+    if (K * F + F) * 4 > _MAX_SHARED_BYTES:
+        raise ValueError(f"w [{K}, {F}] does not fit the kernel's "
+                         f"{_MAX_SHARED_BYTES} B of shared memory")
+    _check({"x0": x0, "patches": patches, "w": w, "a": a},
+           {"x0": (N, F), "patches": (S, N, K), "w": (K, F), "a": (F,)})
+    out = torch.empty_like(x0)
+    _launch("stream_fold_mac_f32", "fold_mac", out, x0.data_ptr(),
+            patches.data_ptr(), w.data_ptr(), a.data_ptr(), out.data_ptr(),
+            N, K, F, S, float(dv_unit))
+    return out
+
+
+def stream_fold(x0: torch.Tensor, deposits: torch.Tensor,
+                a: torch.Tensor) -> torch.Tensor:
+    """Deposit-mode fold: the plain version on the CPU, the kernel on CUDA."""
+    if _on_cpu(x0, deposits, a):
+        return stream_fold_ref(x0, deposits, a)
+    return stream_fold_cuda(x0, deposits, a)
+
+
+def stream_fold_mac(x0: torch.Tensor, patches: torch.Tensor, w: torch.Tensor,
+                    a: torch.Tensor, *, dv_unit: float) -> torch.Tensor:
+    """MAC-mode fold: the plain version on the CPU, the kernel on CUDA."""
+    if _on_cpu(x0, patches, w, a):
+        return stream_fold_mac_ref(x0, patches, w, a, dv_unit=dv_unit)
+    return stream_fold_mac_cuda(x0, patches, w, a, dv_unit=dv_unit)
