@@ -8,21 +8,36 @@ Run from the root of a checkout, on a machine with one CUDA card:
 Phases (each raises on failure; the script then exits non-zero and prints
 no ``ok`` line):
 
-  1. device  — the card's name and power limit; TF32 off for conv/matmul;
-  2. build   — every kernel under src/repro_torch/csrc, one nvcc each;
-  3. kernels — each streaming-fold kernel at the serving shapes
-               (N = 16·128·128, F = 16, K = 18; S ∈ {1, 4}) against its
-               plain PyTorch version on the card, with its time, its plain
-               version's, the least time the card needs (bound) and one
-               PyTorch library call's where one computes the same function;
-  4. slice   — the paper's full-width configuration (configs/p2m_dvs.CONFIG)
-               as a fresh seeded deployment (backbone gain doubled so its
-               head spikes, see ``awake``), saved and reloaded through the
-               checkpoint store, serving 16 synthetic-gesture streams on 16
-               lanes through each fold kernel in turn, with the launch
-               counters set to 0 before and read after each serve;
-  5. parity  — the reduced() configuration served on cuda and on the CPU
-               from the same seeded streams.
+  1. device   — the card's name and power limit; TF32 off for conv/matmul;
+  2. build    — every kernel under src/repro_torch/csrc, one nvcc each, all
+                at once;
+  3. kernels  — each kernel against its plain PyTorch version on the card,
+                with its time, its plain version's, the least time the card
+                needs (bound) and one PyTorch library call's where one
+                computes the same function: the streaming-fold kernels at
+                the serving shapes (N = 16·128·128, F = 16, K = 18;
+                S ∈ {1, 4}); the P²M conv kernel on the physics batch (4
+                synthetic-gesture samples × 4000 ms at 128×128, drawn on the
+                host first) for the three paper circuits and for one; the
+                LIF kernel in float32 and bfloat16 at the backbone's largest
+                LIF call (T 4, N 524,288) and at T 64, N 16,384;
+  4. slice    — the paper's full-width configuration (configs/p2m_dvs.CONFIG)
+                as a fresh seeded deployment (backbone gain doubled so its
+                head spikes, see ``awake``), saved and reloaded through the
+                checkpoint store, serving 16 synthetic-gesture streams on 16
+                lanes through each fold kernel in turn, with the launch
+                counters set to 0 before and read after each serve;
+  5. parity   — the reduced() configuration served on cuda and on the CPU
+                from the same seeded streams;
+  6. physics  — the full-width model evaluated on the physics batch with
+                ``make_eval_fn`` in kernel mode (the P²M conv kernel) and in
+                scan mode for each paper circuit, one kernel-mode eval under
+                torch.profiler (device time by kernel, busy share),
+                ``p2m_apply_stacked`` in kernel mode against one scan per
+                circuit, and the LIF op on the backbone's first LIF input,
+                counters set to 0 before and read after;
+  7. physics parity — the reduced() model evaluated in kernel mode on
+                cuda and on the CPU from the same seeded batch.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -43,6 +58,9 @@ FP32_FLOPS = 67e12
 N_LANES, HW, F, K = 16, 128, 16, 18
 STREAM_MS = 2000.0        # the config's 4000 ms DATA duration, cut in half
 LOGIT_ATOL, GAP = 1e-4, 1e-3
+PHYS_B = 4                # physics batch: samples at the full DATA duration
+SPIN_CYCLES = 200_000     # ~100 us at the H100's 1980 MHz SM clock
+V_RTOL, V_ATOL, BAND = 1e-5, 1e-6, 1e-5    # K1 v_pre; spikes off the band
 
 
 def fail(msg: str) -> None:
@@ -56,15 +74,22 @@ def nvidia_smi(query: str = "name,power.limit") -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, torch, reps: int = 25, flush=None) -> float:
+def time_ms(fn, torch, reps: int = 25, flush=None, spin: bool = True
+            ) -> float:
     """Median CUDA-event time of ``fn`` over ``reps`` runs after a warm-up;
-    ``flush`` (not timed) runs before each, to start from a cold L2."""
+    ``flush`` (not timed) runs before each, to start from a cold L2. With
+    ``spin`` the card busy-waits ~100 us before the start event, so the
+    host's work to launch ``fn`` (checks, allocation, ctypes: tens of us
+    for a wrapper written in Python) happens while the card is busy and the
+    events bracket the device's time alone."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
         if flush is not None:
             flush()
+        if spin:
+            torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -81,20 +106,12 @@ def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
                                        else "operations")
 
 
-def phase_kernels(torch, sf, ref) -> dict:
-    """Both kernels against their plain versions at the serving shapes."""
+def phase_kernels(torch, sf, ref, flush, write_flush) -> dict:
+    """Both fold kernels against their plain versions at the serving
+    shapes."""
     dev = "cuda"
     gen = torch.Generator().manual_seed(0)
     N = N_LANES * HW * HW
-    scratch = torch.empty(32 * 2 ** 20, device=dev)       # 128 MB > L2
-    flush = scratch.zero_
-    # ~1 s of memory traffic first, so the first kernel timed does not run
-    # while the card's clocks are still ramping up from idle
-    t0 = time.perf_counter()
-    while time.perf_counter() - t0 < 1.0:
-        for _ in range(50):
-            flush()
-        torch.cuda.synchronize()
     rows = {}
     for S in (1, 4):
         x0 = (torch.randn((N, F), generator=gen) * 0.05).to(dev)
@@ -139,13 +156,121 @@ def phase_kernels(torch, sf, ref) -> dict:
                "bound_ms": b, "bound_by": by, "library_ms": None}
         rows[("fold_mac", S)] = row
     for row in rows.values():
-        lib = ("-" if row["library_ms"] is None
-               else f"{row['library_ms']:.4f} ms")
-        print(f"[kernels] {row['name']:16s} S={row['S']} N={N} F={F}"
-              f"{' K=%d' % K if row['name'].endswith('mac') else ''}: "
-              f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
-              f"bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})  "
-              f"library {lib}  max|diff| {row['max_abs_err']:.3g}")
+        print_row(row, f"S={row['S']} N={N} F={F}"
+                  f"{' K=%d' % K if row['name'].endswith('mac') else ''}")
+    # the timing method itself: the same launch after a write flush, and
+    # without the spin (host launch work inside the timed window)
+    dep1 = dep[:1].contiguous()
+    fold = lambda: sf.stream_fold_cuda(x0, dep1, a)  # noqa: E731
+    print(f"[kernels] stream_fold      S=1 method check: "
+          f"{time_ms(fold, torch, flush=flush):.4f} ms as timed, "
+          f"{time_ms(fold, torch, flush=write_flush):.4f} ms after a 128 MB "
+          f"write flush, {time_ms(fold, torch, flush=flush, spin=False):.4f} "
+          f"ms without the spin")
+    return rows
+
+
+def print_row(row: dict, shape: str) -> None:
+    lib = ("-" if row["library_ms"] is None
+           else f"{row['library_ms']:.4f} ms")
+    print(f"[kernels] {row['name']:16s} {shape}: kernel {row['ms']:.4f} ms  "
+          f"plain {row['plain_ms']:.4f} ms  bound {row['bound_ms'] * 1e3:.2f} "
+          f"us ({row['bound_by']})  library {lib}  max|diff| "
+          f"{row['max_abs_err']:.3g}")
+
+
+def l2_flushers(torch):
+    """Two callables that each move 128 MB (more than the 50 MB L2): a
+    read, which leaves the L2 full of clean lines (the flush every kernel
+    is timed after), and a write, which leaves it full of dirty lines that
+    the next kernel must write back first (kept to show that cost). Runs
+    ~1 s of such traffic first, so the first kernel timed does not run
+    while the card's clocks are still ramping up from idle."""
+    scratch = torch.zeros(32 * 2 ** 20, device="cuda")
+    sink = torch.empty((), device="cuda")
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 1.0:
+        for _ in range(50):
+            scratch.zero_()
+        torch.cuda.synchronize()
+    return (lambda: torch.sum(scratch, 0, out=sink)), scratch.zero_
+
+
+def check_p2m_conv(torch, got, want, theta, what: str) -> float:
+    """K1's tolerance: v_pre rtol 1e-5 / atol 1e-6, spikes equal wherever
+    |v_pre - theta| > 1e-5. Returns max |v_pre diff| (0 when bit-exact)."""
+    (s, v), (s_ref, v_ref) = got, want
+    if torch.equal(v, v_ref) and torch.equal(s, s_ref):
+        return 0.0
+    diff = (v - v_ref).abs_()
+    err = diff.max().item()
+    if (diff > V_ATOL + V_RTOL * v_ref.abs()).any():
+        fail(f"{what}: v_pre differs by up to {err}")
+    del diff
+    th = theta.reshape((theta.shape[0],) + (1,) * (v_ref.dim() - 2)
+                       + (theta.shape[1],))
+    if ((s != s_ref) & ((v_ref - th).abs() > BAND)).any():
+        fail(f"{what}: spikes differ off the threshold band")
+    return err
+
+
+def phase_p2m_conv(torch, ops, pc, events, params, p2m_cfg, circuits,
+                   flush) -> dict:
+    """K1 on the physics batch, for the three paper circuits in one launch
+    and for the config's own circuit alone (the eval's shape)."""
+    B, T, n_sub, H, W, Cin = events.shape
+    rows = {}
+    for lcs in (tuple(circuits), (p2m_cfg.leak,)):
+        w2, v_inf, decay, theta, consts = ops._prepare(params, p2m_cfg, lcs)
+        args = (events, w2, v_inf, decay, theta, params["pv_gain"],
+                params["pv_offset"])
+        n_cfg, (K, F) = len(lcs), w2.shape
+        err = check_p2m_conv(torch, pc.p2m_conv_cuda(*args, **consts),
+                             ops.p2m_conv_events_ref(*args, **consts),
+                             theta, f"p2m_conv n_cfg={n_cfg}")
+        torch.cuda.empty_cache()
+        ho, wo = -(-H // p2m_cfg.stride), -(-W // p2m_cfg.stride)
+        sites = B * T * ho * wo * F
+        n_bytes = 4 * (events.numel() + w2.numel() + 3 * v_inf.numel()
+                       + 2 * F + 2 * n_cfg * sites)
+        # per (site, filter, sub-slot): the K-term dot product and its
+        # scale once, ~13 ops of update per config; per window the offset
+        # and the comparator per config
+        n_flops = sites * (n_sub * (2 * K + 1 + 13 * n_cfg) + 2 * n_cfg)
+        b, by = bound_ms(n_bytes, n_flops)
+        rows[n_cfg] = {
+            "name": "p2m_conv", "n_cfg": n_cfg, "max_abs_err": err,
+            "ms": time_ms(lambda: pc.p2m_conv_cuda(*args, **consts), torch,
+                          flush=flush),
+            "plain_ms": time_ms(lambda: ops.p2m_conv_events_ref(
+                *args, **consts), torch, flush=flush),
+            "bound_ms": b, "bound_by": by, "library_ms": None}
+        torch.cuda.empty_cache()
+        print_row(rows[n_cfg], f"n_cfg={n_cfg} B={B} T={T} n_sub={n_sub} "
+                               f"{H}x{W}x{Cin} F={F}")
+    return rows
+
+
+def phase_lif(torch, lif, lif_ref, flush) -> dict:
+    """K4 bit-exact against its plain version in both types, at the
+    backbone's largest LIF call and at T 64, N 16,384."""
+    gen = torch.Generator().manual_seed(2)
+    rows = {}
+    for T, N in ((4, 524288), (64, 16384)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn((T, N), generator=gen) * 1.5).to("cuda", dtype)
+            got, want = lif.lif_cuda(x), lif_ref(x)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"lif T={T} N={N} {dtype} is not bit-exact")
+            b, by = bound_ms(2 * T * N * x.element_size(), 7 * T * N)
+            row = {"name": "lif", "max_abs_err": 0.0,
+                   "ms": time_ms(lambda: lif.lif_cuda(x), torch, flush=flush),
+                   "plain_ms": time_ms(lambda: lif_ref(x), torch,
+                                       flush=flush),
+                   "bound_ms": b, "bound_by": by, "library_ms": None}
+            rows[(T, N, dtype)] = row
+            print_row(row, f"T={T} N={N} {str(dtype).split('.')[-1]}")
     return rows
 
 
@@ -190,17 +315,17 @@ def serve_counted(torch, sf, engine, source, n_streams: int) -> tuple:
     return report, dict(sf.LAUNCHES)
 
 
-def awake(dep, gain: float = 2.0):
+def awake(params: dict, gain: float = 2.0) -> dict:
     """A fresh He-init backbone goes silent by its third layer on these
     streams (every logit exactly 0, which would make the logit checks
     vacuous); doubling the BN scales and the fc0 weights keeps spikes
     flowing to the head."""
-    bb = dep.params["backbone"]
+    bb = params["backbone"]
     for k, v in bb.items():
         if k.startswith("bn"):
             v["scale"].mul_(gain)
     bb["fc0"]["w"].mul_(gain)
-    return dep
+    return params
 
 
 def check_logits(got, want, what: str) -> float:
@@ -217,6 +342,173 @@ def check_logits(got, want, what: str) -> float:
     if (np.argmax(got, -1) != np.argmax(want, -1))[clear].any():
         fail(f"{what}: predictions differ where the top-two gap > {GAP}")
     return diff
+
+
+def with_mode(cfg, mode: str, leak=None):
+    """``cfg`` with layer 1 in ``mode`` (and circuit ``leak``, if given)."""
+    from dataclasses import replace
+    p2m = replace(cfg.p2m, mode=mode, leak=leak or cfg.p2m.leak)
+    return replace(cfg, p2m=p2m)
+
+
+def phase_physics(torch, cfg, params, state, events, labels, counters
+                  ) -> dict:
+    """The main path of the physics slice at full width, with every kernel
+    counter set to 0 just before and read just after. Returns the K1 and
+    K4 launch counts and the per-(circuit, mode) eval results."""
+    import numpy as np
+    from repro_torch.core import codesign, leakage, p2m_layer, snn
+    from repro_torch.kernels.lif import ops as lif_ops
+    circuits = leakage.paper_circuits()
+    for mode in ("kernel", "scan"):       # first calls: allocator, cuDNN
+        codesign.make_eval_fn(with_mode(cfg, mode), device="cuda")(
+            params, state, events, labels)
+    for c in counters:
+        for k in c:
+            c[k] = 0
+    evals = {}
+    for lc in circuits:
+        for mode in ("kernel", "scan"):
+            fn = codesign.make_eval_fn(with_mode(cfg, mode, lc),
+                                       device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics, aux = fn(params, state, events, labels)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            evals[(lc.circuit.value, mode)] = (metrics, aux, wall)
+            print(f"[physics] circuit {lc.circuit.value} mode={mode}: eval "
+                  f"{wall * 1e3:.1f} ms = {len(labels) / wall:.2f} samples/s,"
+                  f" acc {float(metrics['acc']):.2f}, spikes/p2m "
+                  f"{float(aux['spikes/p2m']):.0f}, events/in "
+                  f"{float(aux['events/in']):.0f}")
+        (mk, ak, _), (ms, as_, _) = (evals[(lc.circuit.value, "kernel")],
+                                     evals[(lc.circuit.value, "scan")])
+        got, want = mk["logits"].cpu().numpy(), ms["logits"].cpu().numpy()
+        if not np.isfinite(got).all():
+            fail(f"circuit {lc.circuit.value}: non-finite logits")
+        diff = float(np.abs(got - want).max())
+        if not diff <= LOGIT_ATOL:
+            fail(f"circuit {lc.circuit.value}: kernel vs scan logits differ "
+                 f"by {diff} > {LOGIT_ATOL}")
+        for key in ("spikes/p2m", "events/in", "macs/p2m"):
+            if float(ak[key]) != float(as_[key]):
+                fail(f"circuit {lc.circuit.value}: aux {key} kernel "
+                     f"{float(ak[key])} vs scan {float(as_[key])}")
+        print(f"[physics] circuit {lc.circuit.value}: kernel vs scan max "
+              f"|logit diff| {diff:.3g}, max |logit| "
+              f"{float(np.abs(want).max()):.3g}, aux equal")
+    top = max(float(evals[(lc.circuit.value, "scan")][0]["logits"].abs()
+                    .max()) for lc in circuits)
+    if not top > 0.05:
+        fail(f"the head never spiked under any circuit (max |logit| {top}); "
+             f"the logit checks would be vacuous")
+    profile_eval(torch, codesign.make_eval_fn(with_mode(cfg, "kernel"),
+                                              device="cuda"),
+                 (params, state, events, labels))
+    k1_evals = counters[0]["p2m_conv"] - 1           # - the profiled eval
+    if k1_evals != len(circuits):
+        fail(f"{k1_evals} p2m_conv launches for {len(circuits)} kernel-mode "
+             f"evals")
+
+    # the multi-circuit validator: one launch for all three circuits
+    t0 = time.perf_counter()
+    s_m, v_m = p2m_layer.p2m_apply_stacked(
+        params["p2m"], events, with_mode(cfg, "kernel").p2m, circuits)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    theta = torch.tensor([leakage.resolve_v_threshold(lc, cfg.p2m.v_threshold)
+                          for lc in circuits], device="cuda")[:, None]
+    errs = []
+    for i, lc in enumerate(circuits):
+        s_i, v_i = p2m_layer.p2m_apply(params["p2m"], events,
+                                       with_mode(cfg, "scan", lc).p2m)
+        errs.append(check_p2m_conv(
+            torch, (s_m[i:i + 1], v_m[i:i + 1]), (s_i[None], v_i[None]),
+            theta[i:i + 1].expand(1, v_i.shape[-1]),
+            f"p2m_apply_stacked vs scan, circuit {lc.circuit.value}"))
+        del s_i, v_i
+    print(f"[physics] p2m_apply_stacked(kernel) over {len(circuits)} circuits"
+          f" in {wall * 1e3:.1f} ms vs one scan per circuit: max |v_pre diff| "
+          f"{max(errs):.3g}, spikes {[float(x) for x in s_m.sum((1, 2, 3, 4, 5))]}")
+
+    # the LIF op on the backbone's first LIF input (circuit c's spikes)
+    bb, bcfg = params["backbone"], cfg.backbone
+    spikes = s_m[2]
+    del v_m
+    B, T = spikes.shape[:2]
+    pooled = snn.max_pool(spikes.reshape((B * T,) + spikes.shape[2:]))
+    coarse = p2m_layer.coarsen_spikes(pooled.reshape((B, T) + pooled.shape[1:]),
+                                      cfg.coarsen_group())
+    del s_m, spikes, pooled
+    Tc = coarse.shape[1]
+    x = coarse.transpose(0, 1).reshape((Tc * B,) + coarse.shape[2:])
+    y = snn.bn_apply_eval(bb["bn1"], state["bn1"], snn.conv_apply(bb["conv1"], x))
+    y = y.reshape((Tc, B) + y.shape[1:]).contiguous()
+    got = lif_ops.lif_over_time(y, bcfg.lif)
+    want = snn.lif_over_time(y, bcfg.lif)
+    if not torch.equal(got, want):
+        fail("the LIF op differs from snn.lif_over_time on the backbone")
+    print(f"[physics] LIF op on conv1's input {tuple(y.shape)}: equal to "
+          f"snn.lif_over_time, {float(got.sum()):.0f} spikes")
+    torch.cuda.synchronize()
+    launches = {"p2m_conv": counters[0]["p2m_conv"], "lif": counters[1]["lif"]}
+    # three kernel-mode evals, the profiled one and the stacked launch; one
+    # LIF op call; no fold
+    if (launches != {"p2m_conv": len(circuits) + 2, "lif": 1}
+            or any(counters[2].values())):
+        fail(f"physics launches {launches}, folds {counters[2]}: expected "
+             f"{len(circuits) + 2} p2m_conv, 1 lif and no fold")
+    return launches
+
+
+def profile_eval(torch, fn, args, top: int = 6) -> None:
+    """One eval under torch.profiler: device time by kernel (the largest
+    ``top``) and the share of the eval's wall time the device was busy."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.self_device_time_total > 0),
+                     key=lambda e: -e.self_device_time_total)
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if not kernels:
+        print("[physics] profile: no device time recorded, the breakdown "
+              "is not measured")
+        return
+    print(f"[physics] profile of one kernel-mode eval (circuit c): wall "
+          f"{wall_us / 1e3:.2f} ms under the profiler, device busy "
+          f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f} %)")
+    for e in kernels[:top]:
+        print(f"[physics]   {e.self_device_time_total / 1e3:8.3f} ms "
+              f"{e.count:4d}x  {e.key[:90]}")
+
+
+def phase_physics_parity(torch) -> float:
+    """The reduced() model in kernel mode on cuda and on the CPU, same
+    seeded weights and batch."""
+    from repro_torch.configs import p2m_dvs
+    from repro_torch.core import codesign
+    from repro_torch.data import events as ev_mod
+    from repro_torch.stream.deploy import tree_to
+    cfg, data = p2m_dvs.reduced()
+    ev, labels = ev_mod.sample_batch(torch.Generator().manual_seed(1), data,
+                                     PHYS_B, cfg.p2m.t_intg_ms, cfg.p2m.n_sub)
+    logits = {}
+    for device in ("cuda", "cpu"):
+        params, state = codesign.model_init(torch.Generator().manual_seed(0),
+                                            cfg)
+        params = awake(tree_to(params, torch.device(device)))
+        metrics, _ = codesign.make_eval_fn(with_mode(cfg, "kernel"),
+                                           device=device)(
+            params, tree_to(state, torch.device(device)), ev, labels)
+        logits[device] = metrics["logits"].cpu()
+    return check_logits(logits["cuda"], logits["cpu"],
+                        "physics reduced() cuda vs cpu")
 
 
 def main() -> int:
@@ -248,22 +540,49 @@ def main() -> int:
     print(f"[build] {', '.join(_build.sources())} -> {_build.BUILD_DIR} "
           f"in {secs:.1f} s")
 
-    # 3. kernels at the serving shapes
+    # the physics batch and model, drawn on the host before any timing
+    from repro_torch.configs import p2m_dvs
+    from repro_torch.core import codesign, leakage
+    from repro_torch.data import events as ev_mod
+    from repro_torch.stream import deploy
+    cfg = p2m_dvs.CONFIG
+    t0 = time.perf_counter()
+    ev_host, labels = ev_mod.sample_batch(
+        torch.Generator().manual_seed(0), p2m_dvs.DATA, PHYS_B,
+        cfg.p2m.t_intg_ms, cfg.p2m.n_sub)
+    print(f"[physics] drew {PHYS_B} synthetic-gesture samples x "
+          f"{p2m_dvs.DATA.duration_ms:g} ms {tuple(ev_host.shape)} on the "
+          f"host in {time.perf_counter() - t0:.1f} s, "
+          f"{float(ev_host.sum()):.0f} events")
+    events = ev_host.to("cuda")
+    del ev_host
+    params, state = codesign.model_init(torch.Generator().manual_seed(0), cfg)
+    params = awake(deploy.tree_to(params, torch.device("cuda")))
+    state = deploy.tree_to(state, torch.device("cuda"))
+
+    # 3. kernels against their plain versions
+    from repro_torch.kernels.lif import lif
+    from repro_torch.kernels.lif.ref import lif_ref
+    from repro_torch.kernels.p2m_conv import ops as conv_ops
+    from repro_torch.kernels.p2m_conv import p2m_conv as pc
     from repro_torch.kernels.stream_fold import ref
     from repro_torch.kernels.stream_fold import stream_fold as sf
-    rows = phase_kernels(torch, sf, ref)
+    flush, write_flush = l2_flushers(torch)
+    rows = phase_kernels(torch, sf, ref, flush, write_flush)
+    k1_rows = phase_p2m_conv(torch, conv_ops, pc, events, params["p2m"],
+                             cfg.p2m, leakage.paper_circuits(), flush)
+    lif_rows = phase_lif(torch, lif, lif_ref, flush)
+    del flush, write_flush
     print(f"[kernels] after timing: clocks.sm, power.draw, temperature = "
           f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
 
     # 4. the slice at full width, through each fold kernel
-    from repro_torch.configs import p2m_dvs
     from repro_torch.data import sources
-    from repro_torch.stream import deploy
     from repro_torch.stream.engine import StreamEngine, stream_generator
 
     ckpt = ROOT / "build" / "chip_smoke" / "deploy"
-    dep = awake(deploy.fresh_deployment(p2m_dvs.CONFIG, seed=0,
-                                        device="cuda"))
+    dep = deploy.fresh_deployment(p2m_dvs.CONFIG, seed=0, device="cuda")
+    awake(dep.params)
     deploy.save_deployment(ckpt, dep)
     dep = deploy.load_deployment(ckpt, device="cuda")
     print(f"[slice] {p2m_dvs.CONFIG.backbone.input_hw} input, "
@@ -307,14 +626,15 @@ def main() -> int:
     print(f"[slice] fold=mac vs deposit: max |logit diff| {diff:.3g}")
 
     # 5. the same seeded streams on cuda and on the CPU, at reduced()
-    cfg, data = p2m_dvs.reduced()
+    rcfg, rdata = p2m_dvs.reduced()
     runs = {}
     for device in ("cuda", "cpu"):
-        d = awake(deploy.fresh_deployment(cfg, seed=0, device=device))
+        d = deploy.fresh_deployment(rcfg, seed=0, device=device)
+        awake(d.params)
         eng = StreamEngine(d, capacity=8, device=device)
         rsrc = Prerecorded(sources.resolve_dataset(
-            "synthetic-gesture", hw=cfg.backbone.input_hw[0],
-            duration_ms=data.duration_ms), N_LANES, 1, eng.chunk_us,
+            "synthetic-gesture", hw=rcfg.backbone.input_hw[0],
+            duration_ms=rdata.duration_ms), N_LANES, 1, eng.chunk_us,
             eng.slot_us, stream_generator)
         runs[device] = eng.serve(rsrc.replay(), N_LANES, seed=1)
     by_id = {dv: sorted(r.results, key=lambda x: x.stream_id)
@@ -324,6 +644,23 @@ def main() -> int:
     print(f"[parity] reduced(): {N_LANES} streams on 8 lanes, cuda vs cpu "
           f"max |logit diff| {diff:.3g}, predictions "
           f"{[r.prediction for r in by_id['cuda']]}")
+
+    # 6. the physics slice at full width, through K1 and K4
+    print(f"[physics] {cfg.backbone.input_hw} input, {cfg.p2m.out_channels} "
+          f"in-pixel filters, n_sub {cfg.p2m.n_sub}, T_INTG "
+          f"{cfg.p2m.t_intg_ms:g} ms, backbone {cfg.backbone.channels} fc "
+          f"{cfg.backbone.fc_hidden}, coarse window {cfg.coarse_window_ms:g} "
+          f"ms; batch {PHYS_B} x {p2m_dvs.DATA.duration_ms:g} ms")
+    phys = phase_physics(torch, cfg, params, state, events, labels,
+                         (pc.LAUNCHES, lif.LAUNCHES, sf.LAUNCHES))
+    print(f"[physics] main-path launches: {phys}")
+    del events, params, state
+    torch.cuda.empty_cache()
+
+    # 7. the physics eval on cuda and on the CPU, at reduced()
+    diff = phase_physics_parity(torch)
+    print(f"[physics parity] reduced(), kernel mode: cuda vs cpu max "
+          f"|logit diff| {diff:.3g}")
 
     names = {"fold": ("stream_fold", "src/repro/kernels/stream_fold/"
                                      "stream_fold.py:81"),
@@ -339,6 +676,16 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    for row, source, replaces in (
+            (k1_rows[1], "p2m_conv.cu", "p2m_conv/p2m_conv.py:72"),
+            (lif_rows[(4, 524288, torch.float32)], "lif.cu", "lif/lif.py:41")):
+        kernels.append({
+            "name": row["name"], "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": phys[row["name"]],
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}})
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

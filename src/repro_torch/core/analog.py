@@ -77,5 +77,13 @@ def step_nonlinearity(v: torch.Tensor, cfg: AnalogConfig) -> torch.Tensor:
     swing (0 at precharge)."""
     if not cfg.enable_nonlinearity:
         return torch.ones_like(v)
-    half_swing = cfg.vdd / 2.0
-    return torch.clamp(1.0 - (v / half_swing) ** 2, 0.05, 1.0)
+    return torch.clamp(1.0 - true_div(v, cfg.vdd / 2.0) ** 2, 0.05, 1.0)
+
+
+def true_div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d``, correctly rounded on every device. On CUDA, PyTorch
+    divides a tensor by a Python number as a multiply by its reciprocal,
+    which can differ from the division in the last bit; dividing by a
+    0-dim tensor on ``x``'s device keeps the true division, the rounding
+    the P²M conv kernel (``csrc/p2m_conv.cu``) reproduces."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)

@@ -12,7 +12,8 @@ from __future__ import annotations
 import enum
 import functools
 import math
-from dataclasses import dataclass
+from collections.abc import Sequence
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -135,6 +136,28 @@ def leak_params_from_coeffs(w: torch.Tensor, co: LeakCoeffs) -> LeakParams:
 def kernel_leak_params(w: torch.Tensor, cfg: LeakageConfig) -> LeakParams:
     """Per-filter leak linearization of ``cfg`` from kernel weights."""
     return leak_params_from_coeffs(w, leak_coeffs(cfg))
+
+
+def stacked_leak_params(w: torch.Tensor, cfgs: Sequence[LeakageConfig]
+                        ) -> LeakParams:
+    """Leak linearizations of several circuit configs from one kernel,
+    stacked on a leading config axis: fields [n_cfg, ...filters]."""
+    per = [kernel_leak_params(w, c) for c in cfgs]
+    return LeakParams(v_inf=torch.stack([p.v_inf for p in per]),
+                      tau_ms=torch.stack([p.tau_ms for p in per]))
+
+
+def paper_circuits() -> tuple[LeakageConfig, ...]:
+    """The paper's three MAC circuit configs (Fig 3a/3b/3c) with the
+    defaults used throughout."""
+    return (LeakageConfig(circuit=CircuitConfig.BASIC),
+            LeakageConfig(circuit=CircuitConfig.SWITCH),
+            LeakageConfig(circuit=CircuitConfig.NULLIFIED))
+
+
+def with_mismatch(cfg: LeakageConfig, mismatch: float) -> LeakageConfig:
+    """A copy of ``cfg`` with the nullifier mismatch overridden."""
+    return replace(cfg, null_mismatch=mismatch)
 
 
 def decay_factor(tau_ms: torch.Tensor, dt_ms: float) -> torch.Tensor:

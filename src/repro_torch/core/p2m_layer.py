@@ -1,10 +1,17 @@
-"""The P²M in-pixel first layer (paper §2 + §4), curve-fit form — the
-serving half of ``repro.core.p2m_layer`` in PyTorch.
+"""The P²M in-pixel first layer (paper §2 + §4) — ``repro.core.p2m_layer``
+in PyTorch.
 
 Between events the kernel capacitor leaks toward V_inf; each event
-deposits ``dv_unit · Σ w·s``; after T_INTG the voltage goes through the
-fitted transfer curve and the comparator. The curve-fit model folds the
-leak into per-sub-slot decay weights of a linear conv.
+deposits ``dv_unit · Σ w·s``, compressed by the step non-linearity g(V);
+after T_INTG the comparator reads the voltage. Three forms:
+
+  ``mode="scan"``      exact event-driven integration, a Python loop over
+                       windows and sub-slots (the hardware simulator);
+  ``mode="curvefit"``  the paper's trainable model: a linear conv of the
+                       leak-weighted event sum through the fitted transfer
+                       curve;
+  ``mode="kernel"``    the scan's physics in the hand-written P²M conv
+                       kernel (``kernels/p2m_conv``).
 """
 from __future__ import annotations
 
@@ -18,8 +25,10 @@ from repro_torch.core.leakage import LeakageConfig
 # the SAME-padded NHWC/HWIO conv the reference's ``_conv`` runs
 from repro_torch.core.snn import conv_same as _conv  # noqa: F401
 from repro_torch.core.snn import spike_fn
+from repro_torch.kernels.p2m_conv import ops as p2m_ops
 
 Params = dict
+MODES = ("curvefit", "scan", "kernel")
 
 
 @dataclass(frozen=True)
@@ -33,8 +42,7 @@ class P2MConfig:
     v_threshold: float = leakage.DEFAULT_V_THRESHOLD
     analog: AnalogConfig = field(default_factory=AnalogConfig)
     leak: LeakageConfig = field(default_factory=LeakageConfig)
-    # kept so reference checkpoints round-trip; the port serves "curvefit"
-    mode: str = "curvefit"
+    mode: str = "curvefit"           # "curvefit" | "scan" | "kernel"
 
     @property
     def dt_ms(self) -> float:
@@ -53,6 +61,77 @@ def p2m_init(gen: torch.Generator, cfg: P2MConfig) -> Params:
 def effective_weights(params: Params, cfg: P2MConfig) -> torch.Tensor:
     """Quantized (transistor-geometry) weights, straight-through grads."""
     return analog.quantize_weights(params["w"], cfg.analog)
+
+
+def stacked_thetas(cfg: P2MConfig, leak_cfgs: tuple[LeakageConfig, ...],
+                   ndim: int, device: torch.device | str = "cpu"
+                   ) -> torch.Tensor:
+    """Per-variant comparator thresholds, shaped [n_cfg, 1, ..., 1] to
+    broadcast against an ``ndim``-dimensional stacked voltage tensor; each
+    variant may override the model-level ``cfg.v_threshold``."""
+    th = torch.tensor([leakage.resolve_v_threshold(lc, cfg.v_threshold)
+                       for lc in leak_cfgs], dtype=torch.float32,
+                      device=device)
+    return th.reshape((len(leak_cfgs),) + (1,) * (ndim - 1))
+
+
+def _forward_scan_lk(params: Params, events: torch.Tensor, cfg: P2MConfig,
+                     w_q: torch.Tensor, lk: leakage.LeakParams
+                     ) -> torch.Tensor:
+    """Scan-mode voltage integration for one leak linearization.
+
+    ``lk`` fields are [F] (one config → v_pre [B, T_out, H', W', F]) or
+    [n_cfg, 1, 1, 1, F] (a config axis → v_pre [n_cfg, B, T_out, ...]):
+    the voltage recursion broadcasts over it while each sub-slot's conv,
+    which no config changes, runs once. The windows are a Python loop
+    (the reference's ``lax.map``), the sub-slots another (its ``lax.scan``).
+    """
+    B, T_out, n_sub = events.shape[:3]
+    a_cfg = cfg.analog
+    decay = leakage.decay_factor(lk.tau_ms, cfg.dt_ms)
+    out = None
+    for t in range(T_out):
+        v = torch.zeros((), device=events.device)
+        for s in range(n_sub):
+            v = lk.v_inf + (v - lk.v_inf) * decay
+            ideal = _conv(events[:, t, s], w_q, cfg.stride) * a_cfg.dv_unit
+            step = ideal * analog.step_nonlinearity(v, a_cfg)
+            step = step * params["pv_gain"]
+            v = torch.clamp(v + step, -a_cfg.v_precharge,
+                            a_cfg.vdd - a_cfg.v_precharge)
+        v = v + params["pv_offset"]
+        if out is None:
+            out = v.new_empty(v.shape[:-3] + (T_out,) + v.shape[-3:])
+        out.select(-4, t).copy_(v)
+    return out
+
+
+def p2m_forward_scan(params: Params, events: torch.Tensor, cfg: P2MConfig
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact event-driven integration (hardware simulator).
+
+    events [B, T_out, n_sub, H, W, C_in] event counts per sub-slot →
+    (spikes, v_pre), both [B, T_out, H', W', C_out]; v_pre is the
+    pre-comparator voltage at the end of each integration window.
+    """
+    spikes, v_pre = p2m_forward_scan_stacked(params, events, cfg,
+                                             (cfg.leak,))
+    return spikes[0], v_pre[0]
+
+
+def p2m_forward_scan_stacked(params: Params, events: torch.Tensor,
+                             cfg: P2MConfig,
+                             leak_cfgs: tuple[LeakageConfig, ...]
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Scan-mode integration under several circuit configs, on a config
+    axis → (spikes, v_pre), both [n_cfg, B, T_out, H', W', C_out]."""
+    w_q = effective_weights(params, cfg)
+    lk = leakage.stacked_leak_params(w_q, leak_cfgs)          # [n_cfg, F]
+    axis = (len(leak_cfgs), 1, 1, 1, cfg.out_channels)
+    v_pre = _forward_scan_lk(params, events, cfg, w_q, leakage.LeakParams(
+        v_inf=lk.v_inf.reshape(axis), tau_ms=lk.tau_ms.reshape(axis)))
+    th = stacked_thetas(cfg, leak_cfgs, v_pre.dim(), v_pre.device)
+    return spike_fn(v_pre - th), v_pre
 
 
 def curvefit_ideal(events: torch.Tensor, cfg: P2MConfig, w_q: torch.Tensor
@@ -89,6 +168,75 @@ def curvefit_reduce(params: Params, cfg: P2MConfig, ideal: torch.Tensor,
     pv = {"gain": params["pv_gain"], "offset": params["pv_offset"]}
     v_pre = analog.transfer_curve(x, cfg.analog, pv)
     return v_pre.reshape((batch, ideal.shape[0] // batch) + v_pre.shape[1:])
+
+
+def _curvefit_from_lk(params: Params, events: torch.Tensor, cfg: P2MConfig,
+                      w_q: torch.Tensor, lk: leakage.LeakParams
+                      ) -> torch.Tensor:
+    """Single-config curve-fit body for one leak linearization (fields
+    [C_out]) → v_pre [B, T_out, H', W', C_out]."""
+    ideal = curvefit_ideal(events, cfg, w_q)
+    return curvefit_reduce(params, cfg, ideal, lk, events.shape[0])
+
+
+def p2m_forward_curvefit(params: Params, events: torch.Tensor,
+                         cfg: P2MConfig
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The paper's trainable model: leak-weighted linear conv → curve fit.
+    Returns (spikes, v_pre), both [B, T_out, H', W', C_out]."""
+    w_q = effective_weights(params, cfg)
+    lk = leakage.kernel_leak_params(w_q, cfg.leak)
+    v_pre = _curvefit_from_lk(params, events, cfg, w_q, lk)
+    theta = leakage.resolve_v_threshold(cfg.leak, cfg.v_threshold)
+    return spike_fn(v_pre - theta), v_pre
+
+
+def p2m_forward_curvefit_stacked(params: Params, events: torch.Tensor,
+                                 cfg: P2MConfig,
+                                 leak_cfgs: tuple[LeakageConfig, ...]
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Curve-fit model under several circuit configs: the per-sub-slot
+    ideal conv runs once and each config reduces it with its own decay
+    weights (a loop over configs). Returns (spikes, v_pre), both
+    [n_cfg, B, T_out, H', W', C_out]."""
+    w_q = effective_weights(params, cfg)
+    lk = leakage.stacked_leak_params(w_q, leak_cfgs)
+    ideal = curvefit_ideal(events, cfg, w_q)
+    v_pre = torch.stack([
+        curvefit_reduce(params, cfg, ideal, leakage.LeakParams(
+            v_inf=lk.v_inf[i], tau_ms=lk.tau_ms[i]), events.shape[0])
+        for i in range(len(leak_cfgs))])
+    th = stacked_thetas(cfg, leak_cfgs, v_pre.dim(), v_pre.device)
+    return spike_fn(v_pre - th), v_pre
+
+
+def p2m_apply(params: Params, events: torch.Tensor, cfg: P2MConfig
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dispatch on ``cfg.mode``. events [B, T_out, n_sub, H, W, C_in] →
+    (spikes, v_pre) [B, T_out, H', W', C_out]."""
+    if cfg.mode == "scan":
+        return p2m_forward_scan(params, events, cfg)
+    if cfg.mode == "curvefit":
+        return p2m_forward_curvefit(params, events, cfg)
+    if cfg.mode == "kernel":
+        return p2m_ops.p2m_conv(params, events, cfg)
+    raise ValueError(f"unknown mode {cfg.mode!r} (expected one of {MODES})")
+
+
+def p2m_apply_stacked(params: Params, events: torch.Tensor, cfg: P2MConfig,
+                      leak_cfgs: tuple[LeakageConfig, ...]
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Dispatch on ``cfg.mode`` over a circuit-config axis (``leak_cfgs``
+    overrides ``cfg.leak``) → (spikes, v_pre), both
+    [n_cfg, B, T_out, H', W', C_out]. Mode "kernel" evaluates every
+    config in one kernel launch."""
+    if cfg.mode == "scan":
+        return p2m_forward_scan_stacked(params, events, cfg, leak_cfgs)
+    if cfg.mode == "curvefit":
+        return p2m_forward_curvefit_stacked(params, events, cfg, leak_cfgs)
+    if cfg.mode == "kernel":
+        return p2m_ops.p2m_conv_multi(params, events, cfg, leak_cfgs)
+    raise ValueError(f"unknown mode {cfg.mode!r} (expected one of {MODES})")
 
 
 def p2m_forward_curvefit_coeffs(params: Params, events: torch.Tensor,

@@ -267,3 +267,20 @@ def spiking_cnn_stream_step(params: Params, state: State, mem: State,
     v, s = lif_step(mem["lif_fc0"], z, cfg.lif)
     new_mem["lif_fc0"] = v
     return dense_apply(params["fc1"], s), new_mem
+
+
+# ---------------------------------------------------------------------------
+# loss and metric
+# ---------------------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy of logits [B, C] against int labels [B]."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.mean(torch.take_along_dim(logp, labels[:, None].long(),
+                                            dim=-1))
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Share of samples whose arg-max logit is the label."""
+    return torch.mean((torch.argmax(logits, dim=-1) == labels)
+                      .to(torch.float32))

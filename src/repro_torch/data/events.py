@@ -122,3 +122,37 @@ def sample_events(gen: torch.Generator, cfg: EventStreamConfig,
             out[b, lo:lo + len(idx)] = torch.poisson(
                 rates * cfg.contrast_gain, generator=gen)
     return out.reshape(B, n_slots, n_sub, cfg.height, cfg.width, 2)
+
+
+def sample_batch(gen: torch.Generator, cfg: EventStreamConfig,
+                 batch_size: int, t_intg_ms: float, n_sub: int = 1
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(events [B, n_slots, n_sub, H, W, 2], labels [B]) at a given
+    first-layer integration time, labels uniform over the classes."""
+    labels = torch.randint(0, cfg.n_classes, (batch_size,), generator=gen)
+    return sample_batch_with_labels(gen, cfg, labels, t_intg_ms, n_sub)
+
+
+def sample_batch_with_labels(gen: torch.Generator, cfg: EventStreamConfig,
+                             labels: torch.Tensor, t_intg_ms: float,
+                             n_sub: int = 1
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Events for *given* labels (class-conditional analysis)."""
+    n_slots = int(round(cfg.duration_ms / t_intg_ms))
+    events = sample_events(gen, cfg, [int(x) for x in labels], n_slots, n_sub)
+    return events, torch.as_tensor(labels)
+
+
+def events_to_frames(events: torch.Tensor) -> torch.Tensor:
+    """Collapse sub-slots: [B, T, n_sub, H, W, 2] → [B, T, H, W, 2] counts."""
+    return events.sum(dim=2)
+
+
+def refine_slots(events: torch.Tensor, factor: int) -> torch.Tensor:
+    """Re-bin [B, T, n_sub, ...] onto a coarser T grid, T → T // factor
+    with factor · n_sub sub-slots each: the same stream integrated at a
+    longer T_INTG, event counts conserved."""
+    B, T, n_sub = events.shape[:3]
+    if T % factor:
+        raise ValueError(f"{T} slots do not split into groups of {factor}")
+    return events.reshape((B, T // factor, factor * n_sub) + events.shape[3:])

@@ -1,5 +1,5 @@
-"""PyTorch port: the CUDA streaming-fold kernels against their plain
-versions, on the card. Imports no JAX, so it runs on the machine with the
+"""PyTorch port: the CUDA kernels (streaming fold, P²M conv, LIF) against
+their plain versions, on the card. Imports no JAX, so it runs on the machine with the
 card: ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 Without a GPU every test here skips."""
 from __future__ import annotations
@@ -71,3 +71,154 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda_device):
         sf.stream_fold(x0, dep, a.cpu())
     with pytest.raises(ValueError):
         sf.stream_fold(x0.t().contiguous().t(), dep[:, :, :3], a)
+
+
+# ---------------------------------------------------------------------------
+# K1: the P²M conv kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _conv_inputs(seed, B, T, n_sub, hw, cin, F, n_cfg):
+    """Event counts and quantized weights (exact dot products), leak legs
+    and thresholds per config: numpy arrays in the kernel's argument
+    order."""
+    rng = np.random.default_rng(seed)
+    ev = rng.poisson(0.5, (B, T, n_sub) + hw + (cin,)).astype(np.float32)
+    w = (np.round(rng.uniform(-1, 1, (9 * cin, F)) * 8) / 8).astype(np.float32)
+    v_inf = rng.uniform(-0.4, 0.3, (n_cfg, F)).astype(np.float32)
+    decay = np.exp(-rng.uniform(0, 0.5, (n_cfg, F))).astype(np.float32)
+    theta = rng.uniform(0.005, 0.03, (n_cfg, 1)).repeat(F, 1).astype(np.float32)
+    pvg = (1 + 0.02 * rng.standard_normal(F)).astype(np.float32)
+    pvo = (1.5e-3 * rng.standard_normal(F)).astype(np.float32)
+    return ev, w, v_inf, decay, theta, pvg, pvo
+
+
+_CONSTS = dict(kernel_size=3, dv_unit=0.01, half_swing=0.4, v_lo=-0.4,
+               v_hi=0.4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,stride,n_cfg,nonlinear,F,cin", [
+    ((7, 9), 1, 1, True, 16, 2),
+    ((12, 12), 2, 3, True, 16, 2),
+    ((13, 11), 2, 3, False, 5, 2),
+    ((20, 17), 1, 8, True, 8, 2),
+    ((9, 10), 2, 2, True, 6, 1),           # the kernel's generic-K path
+    ((8, 8), 1, 2, True, 40, 2),           # 640 threads a block
+])
+def test_cuda_p2m_conv_vs_plain(cuda_device, hw, stride, n_cfg, nonlinear, F,
+                                cin):
+    """Bit-exact on exact inputs (event counts x eighths)."""
+    from repro_torch.kernels.p2m_conv import ops, p2m_conv
+    ts = [t.to(cuda_device) for t in _t(*_conv_inputs(
+        hw[0] + n_cfg, 2, 3, 4, hw, cin, F, n_cfg))]
+    kw = dict(_CONSTS, stride=stride, nonlinear=nonlinear)
+    n = p2m_conv.LAUNCHES["p2m_conv"]
+    s, v = p2m_conv.p2m_conv_cuda(*ts, **kw)
+    assert p2m_conv.LAUNCHES["p2m_conv"] == n + 1
+    s_ref, v_ref = ops.p2m_conv_events_ref(*ts, **kw)
+    torch.cuda.synchronize()
+    ho, wo = -(-hw[0] // stride), -(-hw[1] // stride)
+    assert tuple(v.shape) == (n_cfg, 2, 3, ho, wo, F)
+    torch.testing.assert_close(v, v_ref, rtol=0, atol=0)
+    torch.testing.assert_close(s, s_ref, rtol=0, atol=0)
+    assert 0 < float(s.sum()) < s.numel()
+
+
+@pytest.mark.cuda
+def test_cuda_p2m_conv_rejects_bad_inputs(cuda_device):
+    from repro_torch.kernels.p2m_conv import p2m_conv
+    ts = [t.to(cuda_device) for t in _t(*_conv_inputs(0, 1, 1, 2, (6, 6), 2,
+                                                      4, 2))]
+    kw = dict(_CONSTS, stride=1)
+    n = p2m_conv.LAUNCHES["p2m_conv"]
+    with pytest.raises(TypeError):
+        p2m_conv.p2m_conv_cuda(ts[0].double(), *ts[1:], **kw)
+    with pytest.raises(ValueError, match="CUDA device"):
+        p2m_conv.p2m_conv_cuda(ts[0], ts[1].cpu(), *ts[2:], **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        p2m_conv.p2m_conv_cuda(ts[0].transpose(3, 4).contiguous()
+                               .transpose(3, 4), *ts[1:], **kw)
+    with pytest.raises(ValueError, match="1 to 8 configs"):
+        p2m_conv.p2m_conv_cuda(ts[0], ts[1], *[t.repeat(5, 1)
+                                               for t in ts[2:5]],
+                               *ts[5:], **kw)
+    with pytest.raises(ValueError, match="shape"):
+        p2m_conv.p2m_conv_cuda(ts[0], ts[1][:9], *ts[2:], **kw)
+    with pytest.raises(ValueError, match="1 to 64 filters"):
+        p2m_conv.p2m_conv_cuda(ts[0], ts[1].repeat(1, 17), *ts[2:], **kw)
+    assert p2m_conv.LAUNCHES["p2m_conv"] == n
+
+
+@pytest.mark.cuda
+def test_cuda_p2m_apply_stacked_kernel_vs_scan(cuda_device):
+    """The model path on the card: one launch for all three circuits,
+    equal to one scan per circuit."""
+    import dataclasses
+    from repro_torch.core import leakage, p2m_layer
+    from repro_torch.kernels.p2m_conv import p2m_conv
+    cfg = p2m_layer.P2MConfig(out_channels=8, n_sub=4, mode="kernel")
+    params = p2m_layer.p2m_init(torch.Generator().manual_seed(0), cfg)
+    params = {k: v.to(cuda_device) for k, v in params.items()}
+    ev = torch.from_numpy(np.random.default_rng(1).poisson(
+        0.4, (2, 3, 4, 16, 16, 2)).astype(np.float32)).to(cuda_device)
+    n = p2m_conv.LAUNCHES["p2m_conv"]
+    s_m, v_m = p2m_layer.p2m_apply_stacked(params, ev, cfg,
+                                           leakage.paper_circuits())
+    assert p2m_conv.LAUNCHES["p2m_conv"] == n + 1
+    for i, lc in enumerate(leakage.paper_circuits()):
+        s_i, v_i = p2m_layer.p2m_apply(
+            params, ev, dataclasses.replace(cfg, mode="scan", leak=lc))
+        torch.testing.assert_close(v_m[i], v_i, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(s_m[i], s_i, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# K4: the LIF kernel against its plain version
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("soft_reset", [True, False])
+@pytest.mark.parametrize("T,N,tau", [(4, 4096, 2.0), (9, 1003, 3.0),
+                                     (64, 16384, 2.0), (4, 524288, 2.0),
+                                     (11, 2 ** 19 + 8, 2.5)])
+def test_cuda_lif_bit_exact_vs_plain(cuda_device, dtype, soft_reset, T, N,
+                                     tau):
+    from repro_torch.kernels.lif import lif, ref as lif_ref
+    x = torch.from_numpy((np.random.default_rng(T + N).standard_normal(
+        (T, N)) * 1.5).astype(np.float32)).to(cuda_device, dtype)
+    n = lif.LAUNCHES["lif"]
+    got = lif.lif(x, tau=tau, v_th=1.0, soft_reset=soft_reset)
+    assert lif.LAUNCHES["lif"] == n + 1
+    want = lif_ref.lif_ref(x, tau=tau, v_th=1.0, soft_reset=soft_reset)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert 0 < float(got.float().sum()) < got.numel()
+
+
+@pytest.mark.cuda
+def test_cuda_lif_op_matches_snn(cuda_device):
+    from repro_torch.core import snn
+    from repro_torch.kernels.lif import ops
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (4, 2, 8, 8, 16)).astype(np.float32) * 2).to(cuda_device)
+    got = ops.lif_over_time(x, snn.LIFConfig())
+    torch.testing.assert_close(got, snn.lif_over_time(x, snn.LIFConfig()),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_lif_rejects_bad_inputs(cuda_device):
+    from repro_torch.kernels.lif import lif
+    x = torch.zeros((4, 8), device=cuda_device)
+    n = lif.LAUNCHES["lif"]
+    with pytest.raises(TypeError):
+        lif.lif(x.half())
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        lif.lif_cuda(x.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        lif.lif(torch.zeros((8, 4), device=cuda_device).t())
+    with pytest.raises(ValueError, match=r"\[T, N\]"):
+        lif.lif(x[None])
+    assert lif.LAUNCHES["lif"] == n

@@ -65,10 +65,12 @@ def no_gpu(monkeypatch):
 
 @pytest.mark.parametrize("entry", [
     "resolve_device", "fresh_deployment", "load_deployment",
-    "params_from_jax", "make_stream_fns", "StreamEngine", "launcher"])
+    "params_from_jax", "make_stream_fns", "StreamEngine", "launcher",
+    "make_eval_fn"])
 def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(entry, no_gpu,
                                                           tmp_path):
     """Without a GPU every entry point raises unless given device="cpu"."""
+    from repro_torch.core import codesign
     from repro_torch.kernels.backend import resolve_device
     from repro_torch.launch import stream as launcher
     dep = _small_dep()
@@ -89,6 +91,8 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(entry, no_gpu,
              "--out", str(tmp_path / "out")]
             + (["--device", kw["device"]] if kw else [])
             + ["--duration-ms", "1000"]),
+        "make_eval_fn": lambda **kw: codesign.make_eval_fn(dep.model_cfg,
+                                                           **kw),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
