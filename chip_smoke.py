@@ -20,7 +20,13 @@ no ``ok`` line):
                 synthetic-gesture samples × 4000 ms at 128×128, drawn on the
                 host first) for the three paper circuits and for one; the
                 LIF kernel in float32 and bfloat16 at the backbone's largest
-                LIF call (T 4, N 524,288) and at T 64, N 16,384;
+                LIF call (T 4, N 524,288) and at T 64, N 16,384; the
+                flash-attention kernel through gqa_attention at the
+                internlm2-1.8b prefill (q/k/v [1, 2048, 16, 128], causal;
+                bfloat16 held per element, see ``fa_limit``) and the SSD
+                kernel at the mamba2-780m prefill (x [1, 2048, 48, 64], n
+                128, g 1, chunk 128), each in float32 and bfloat16 and on a
+                padded shape;
   4. slice    — the paper's full-width configuration (configs/p2m_dvs.CONFIG)
                 as a fresh seeded deployment (backbone gain doubled so its
                 head spikes, see ``awake``), saved and reloaded through the
@@ -37,7 +43,19 @@ no ``ok`` line):
                 circuit, and the LIF op on the backbone's first LIF input,
                 counters set to 0 before and read after;
   7. physics parity — the reduced() model evaluated in kernel mode on
-                cuda and on the CPU from the same seeded batch.
+                cuda and on the CPU from the same seeded batch;
+  8. lm       — LM request serving at full published width
+                (internlm2-1.8b through the flash-attention kernel,
+                mamba2-780m through the SSD kernel; serving numerics, bf16,
+                seeded weights): SlotServer with batch 4, 8 requests of 2048
+                prompt tokens and 32 generated, counters set to 0 before and
+                read after, one prefill and one decode step under
+                torch.profiler; then, in float32 compute, prefill S tokens
+                and decode token S against the last logits of a prefill of
+                S + 1;
+  9. lm parity — both architectures' smoke variants served on cuda and on
+                the CPU from the same weights and prompts (float32 compute):
+                the same generated tokens.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -61,6 +79,15 @@ LOGIT_ATOL, GAP = 1e-4, 1e-3
 PHYS_B = 4                # physics batch: samples at the full DATA duration
 SPIN_CYCLES = 200_000     # ~100 us at the H100's 1980 MHz SM clock
 V_RTOL, V_ATOL, BAND = 1e-5, 1e-6, 1e-5    # K1 v_pre; spikes off the band
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W)
+BF16_TC_FLOPS = 989e12
+# K5 float32 max |diff| against its float32 plain version (bfloat16 is
+# held per element, see fa_limit); K6 relative error
+FA_ATOL = 2e-3
+SSD_RTOL = 1e-3
+LM_ARCHS = ("internlm2-1.8b", "mamba2-780m")
+LM_BATCH, LM_REQUESTS, LM_PROMPT, LM_GEN = 4, 8, 2048, 32
+LM_LOGIT_ATOL = 1e-3      # full-width prefill(S) + decode vs prefill(S + 1)
 
 
 def fail(msg: str) -> None:
@@ -100,8 +127,12 @@ def time_ms(fn, torch, reps: int = 25, flush=None, spin: bool = True
     return sorted(times)[len(times) // 2]
 
 
-def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOPS
+def bound_ms(n_bytes: float, n_flops: float, peak: float = FP32_FLOPS
+             ) -> tuple[float, str]:
+    """The least time for the work: bytes over the HBM rate or operations
+    over ``peak`` (fp32 non-tensor unless the work is tensor-core work),
+    whichever is larger."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -274,6 +305,292 @@ def phase_lif(torch, lif, lif_ref, flush) -> dict:
     return rows
 
 
+def fa_limit(want, abs_attn, dtype, torch):
+    """K5's per-element limit against the float32 plain version ``want``.
+    float32: FA_ATOL. bfloat16: the kernel rounds each p to bfloat16 before
+    PV, a relative error of at most u = 2^-8 each, so at most u times the
+    attention of |v| (``abs_attn``) per element, and rounds the output, at
+    most u |o|; the limit is their sum, with 2^-6 of the first and 1e-5 to
+    spare for float32 summation order."""
+    if dtype == torch.float32:
+        return torch.full_like(want, FA_ATOL)
+    u = 2.0 ** -8
+    return u * want.abs() + u * (1 + 2.0 ** -6) * abs_attn + 1e-5
+
+
+def phase_flash_attention(torch, ops, fa_ref, flush) -> dict:
+    """K5 through ``ops.gqa_attention`` at the internlm2-1.8b prefill (q/k/v
+    [1, 2048, 16, 128] as project_qkv lays them out: one 2048-token prompt,
+    its 16 physical heads, G = 1, causal) and on a padded shape (Sq 100)
+    with G = 2 (k/v [1, 100, 8, 128]), in float32 and bfloat16. Each is
+    held per element against attention_ref on the same values reshaped to
+    [B H, S, d] (K/V repeated to every query head), and the first timed
+    beside the op's plain version and scaled_dot_product_attention."""
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(3)
+    rows = {}
+    for B, S, H, KV, d in ((1, LM_PROMPT, 16, 16, 128), (1, 100, 16, 8, 128)):
+        G = H // KV
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            q = torch.randn((B, S, H, d), generator=gen).to("cuda", dtype)
+            k, v = (torch.randn((B, S, KV, d), generator=gen).to("cuda", dtype)
+                    for _ in range(2))
+            got = ops.gqa_attention(q, k, v, causal=True)
+            bh = [t.float().repeat_interleave(H // t.shape[2], dim=2)
+                  .transpose(1, 2).reshape(B * H, S, d) for t in (q, k, v)]
+            want = fa_ref.attention_ref(*bh, causal=True)
+            abs_attn = fa_ref.attention_ref(bh[0], bh[1], bh[2].abs(),
+                                            causal=True)
+            got = got.float().transpose(1, 2).reshape(B * H, S, d)
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            share = (diff / fa_limit(want, abs_attn, dtype, torch)).max().item()
+            err = diff.max().item()
+            if not share <= 1.0:
+                fail(f"flash_attention q [{B}, {S}, {H}, {d}] G {G} {name}: "
+                     f"max |diff| {err}, {share:.3g} times the limit")
+            del got, want, abs_attn, bh, diff
+            print(f"[kernels] flash_attention  q [{B}, {S}, {H}, {d}] G {G} "
+                  f"causal {name}: max|diff| {err:.3g}, at most "
+                  f"{share:.3g} of the per-element limit")
+            if S != LM_PROMPT:
+                continue
+            # QK^T and PV: 4 d flops for each (q, k) pair with k <= q; the
+            # bf16 work belongs on the tensor cores, float32 on the CUDA cores
+            n_flops = 4 * B * H * d * S * (S + 1) // 2
+            b, by = bound_ms(2 * (H + KV) * B * S * d * q.element_size(),
+                             n_flops, BF16_TC_FLOPS if dtype == torch.bfloat16
+                             else FP32_FLOPS)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            row = {"name": "flash_attention", "max_abs_err": err,
+                   "limit_share": share,
+                   "ms": time_ms(lambda: ops.gqa_attention(q, k, v,
+                                                           causal=True),
+                                 torch, flush=flush),
+                   "plain_ms": time_ms(lambda: fa_ref.gqa_attention_ref(
+                       q, k, v, causal=True), torch, flush=flush),
+                   "bound_ms": b, "bound_by": by,
+                   "library_ms": time_ms(
+                       lambda: F.scaled_dot_product_attention(
+                           qt, kt, vt, is_causal=True),
+                       torch, flush=flush)}
+            rows[name] = row
+            print_row(row, f"q [{B}, {S}, {H}, {d}] causal {name}")
+            del q, k, v, qt, kt, vt
+    return rows
+
+
+def ssd_work(b, s, h, p, g, n, esize, chunk=128) -> tuple[int, int]:
+    """(bytes, flops) of one chunked SSD scan: x and y, B and C, dt, A and
+    the final state moved once; per chunk of Lc steps the lower triangle of
+    C B^T (n terms) and of W x (p terms), C state^T and the state update
+    (n p terms each per step)."""
+    n_bytes = (2 * b * s * h * p + 2 * b * s * g * n) * esize \
+        + 4 * (b * s * h + h + b * h * p * n)
+    fmas = 0
+    for c0 in range(0, s, chunk):
+        lc = min(chunk, s - c0)
+        fmas += lc * (lc + 1) // 2 * (n + p) + 2 * lc * n * p
+    return n_bytes, 2 * fmas * b * h
+
+
+def phase_ssd(torch, sd, ssd_ref, flush) -> dict:
+    """K6 against its plain version at the mamba2-780m prefill (x [1, 2048,
+    48, 64], n 128, g 1, chunk 128) and on a padded shape (s 200), in
+    float32 and bfloat16: y and state within relative error 1e-3 of the
+    largest magnitude (a bfloat16 y also within one bfloat16 step of its
+    own value, the rounding of the output)."""
+    import torch.nn.functional as F
+    gen = torch.Generator().manual_seed(4)
+    rows = {}
+    for b, s, h, p, g, n in ((1, LM_PROMPT, 48, 64, 1, 128),
+                             (1, 200, 48, 64, 1, 128)):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            x = torch.randn((b, s, h, p), generator=gen).to("cuda", dtype)
+            dt = F.softplus(torch.randn((b, s, h), generator=gen)).to("cuda")
+            A = -torch.exp(torch.randn(h, generator=gen) * 0.3).to("cuda")
+            B, C = (torch.randn((b, s, g, n), generator=gen).to("cuda", dtype)
+                    for _ in range(2))
+            args = (x, dt, A, B, C)
+            y, st = sd.ssd_cuda(*args, chunk=128)
+            y_r, st_r = ssd_ref(*args)
+            torch.cuda.synchronize()
+            dy = (y.float() - y_r.float()).abs()
+            ulp = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
+            y_top = y_r.float().abs().max().item()
+            st_err = (st - st_r).abs().max().item() / st_r.abs().max().item()
+            if ((dy > SSD_RTOL * y_top + ulp * y_r.float().abs()).any()
+                    or not st_err <= SSD_RTOL):
+                fail(f"ssd [{b}, {s}, {h}, {p}] n {n} {name}: y max |diff| "
+                     f"{dy.max().item()} (max |y| {y_top}), state relative "
+                     f"error {st_err}")
+            err = dy.max().item()
+            if s != LM_PROMPT:
+                print(f"[kernels] ssd              [{b}, {s}, {h}, {p}] n {n} "
+                      f"{name}: y max|diff| {err:.3g}, state rel err "
+                      f"{st_err:.3g} (pad case)")
+                continue
+            bb, by = bound_ms(*ssd_work(b, s, h, p, g, n, x.element_size()))
+            row = {"name": "ssd", "max_abs_err": err,
+                   "ms": time_ms(lambda: sd.ssd_cuda(*args, chunk=128), torch,
+                                 flush=flush),
+                   "plain_ms": time_ms(lambda: ssd_ref(*args), torch, reps=5,
+                                       flush=flush),
+                   "bound_ms": bb, "bound_by": by, "library_ms": None}
+            rows[name] = row
+            print_row(row, f"[{b}, {s}, {h}, {p}] n={n} {name}")
+            print(f"[kernels] ssd              state rel err {st_err:.3g}, y "
+                  f"max |y| {y_top:.3g}")
+    return rows
+
+
+def zero(counters) -> None:
+    for c in counters:
+        for k in c:
+            c[k] = 0
+
+
+def read(counters) -> dict:
+    return {k: v for c in counters for k, v in c.items()}
+
+
+def phase_lm(torch, arch: str, counters) -> dict:
+    """One architecture at full published width behind the serving entry
+    point: seeded bf16 weights drawn on the card, a SlotServer of 4 lanes
+    serving 8 requests of 2048 prompt tokens and 32 generated tokens with
+    every counter set to 0 just before and read just after; one prefill and
+    one decode step under torch.profiler; then the float32-compute check
+    that prefill(S) + decode(token S) gives the last logits of
+    prefill(S + 1)."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import SlotServer, make_requests, serve
+    from repro_torch.models import lm
+    cfg = get_config(arch)
+    max_len = LM_PROMPT + LM_GEN + 8
+    server = SlotServer(cfg, LM_BATCH, max_len, device="cuda")
+    scfg = server.cfg
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            scfg, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[lm] {arch}: family {scfg.family}, {scfg.n_layers} layers, d_model "
+          f"{scfg.d_model}, vocab {scfg.vocab_size} (physical "
+          f"{scfg.phys_vocab}), {n_params / 1e9:.3f} G parameters in "
+          f"{scfg.param_dtype} drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    server.load(params)
+    serve(server, make_requests(1, 64, 2, scfg.vocab_size, seed=2))  # warm-up
+    server.timings = {"prefill": [], "decode": []}
+    reqs = make_requests(LM_REQUESTS, LM_PROMPT, LM_GEN, scfg.vocab_size,
+                         seed=1)
+    zero(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done, steps = serve(server, reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read(counters)
+    n_tok = sum(len(r.generated) for r in done)
+    toks = [t for r in done for t in r.generated]
+    if len(done) != LM_REQUESTS or n_tok != LM_REQUESTS * LM_GEN:
+        fail(f"{arch}: {len(done)} requests, {n_tok} tokens")
+    if not all(0 <= t < scfg.vocab_size for t in toks):
+        fail(f"{arch}: a generated token lies outside the vocabulary")
+    kernel = "flash_attention" if scfg.family == "dense" else "ssd"
+    want = {k: 0 for k in launches}
+    want[kernel] = scfg.n_layers * LM_REQUESTS
+    if launches != want:
+        fail(f"{arch}: launches {launches}, expected {want}")
+    pre, dec = server.timings["prefill"], sorted(server.timings["decode"])
+    out = {"launches": launches, "wall_s": wall, "tok_s": n_tok / wall,
+           "prefill_ms": 1e3 * sum(pre) / len(pre),
+           "decode_ms": 1e3 * dec[len(dec) // 2], "steps": steps}
+    print(f"[lm] {arch} serve: {len(done)} requests, {n_tok} tokens, "
+          f"{steps} decode steps, wall {wall:.2f} s = {out['tok_s']:.1f} "
+          f"tok/s; prefill {out['prefill_ms']:.1f} ms per request "
+          f"({LM_PROMPT} tokens, host clock), decode step {out['decode_ms']:.2f} ms "
+          f"(median), launches {launches}")
+
+    prompt = reqs[0].prompt.to("cuda")[None]
+    profile_eval(torch, lm.prefill, (params, prompt, scfg, max_len),
+                 tag="lm", what=f"{arch} prefill of {LM_PROMPT} tokens")
+    tokens = torch.zeros((LM_BATCH, 1), dtype=torch.long, device="cuda")
+    profile_eval(torch, lm.decode_step,
+                 (params, tokens, server.pos, server.cache, scfg),
+                 tag="lm", what=f"{arch} decode step at batch {LM_BATCH}")
+    del server
+
+    # consistency in float32 compute: the kernel path (prefill) against the
+    # plain path (decode) for one more token
+    cfg32 = replace(scfg, compute_dtype="float32")
+    S = LM_PROMPT
+    tok = torch.cat([reqs[0].prompt, torch.tensor(reqs[0].generated[:1])]
+                    ).to("cuda")[None]
+    _, cache = lm.prefill(params, tok[:, :S], cfg32, max_len=S + 8)
+    dec_logits, _ = lm.decode_step(params, tok[:, S:], torch.tensor(
+        S, device="cuda"), cache, cfg32)
+    del cache
+    longer, _ = lm.prefill(params, tok, cfg32)
+    V = scfg.vocab_size
+    a, b = dec_logits[0, 0, :V], longer[0, :V]
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        fail(f"{arch}: non-finite logits in float32 compute")
+    diff = (a - b).abs().max().item()
+    if not diff <= LM_LOGIT_ATOL:
+        fail(f"{arch}: prefill({S}) + decode vs prefill({S + 1}) logits "
+             f"differ by {diff} > {LM_LOGIT_ATOL}")
+    out["consistency"] = diff
+    print(f"[lm] {arch} float32 compute: prefill({S}) + decode(token {S}) vs "
+          f"prefill({S + 1}): max |logit diff| {diff:.3g} (max |logit| "
+          f"{b.abs().max().item():.3g}), argmax equal: "
+          f"{int(a.argmax()) == int(b.argmax())}")
+    del params, dec_logits, longer
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_lm_parity(torch) -> None:
+    """Each architecture's smoke variant served on cuda and on the CPU from
+    the same weights and prompts, float32 compute: the same tokens."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.launch.serve import Request, SlotServer, serve
+    from repro_torch.models import lm
+    from repro_torch.serve.steps import serve_config
+    for arch in LM_ARCHS:
+        cfg = replace(smoke_variant(get_config(arch)), compute_dtype="float32")
+        params = lm.init_params(torch.Generator().manual_seed(0),
+                                serve_config(cfg), "cpu")
+        gen = torch.Generator().manual_seed(5)
+        prompts = [torch.randint(0, cfg.vocab_size, (20 + 37 * i,),
+                                 generator=gen) for i in range(5)]
+        out = {}
+        for device in ("cuda", "cpu"):
+            server = SlotServer(cfg, 2, 200, device=device)
+            server.load(lm._tree_map(lambda t: t.to(device), params))
+            reqs = [Request(i, p, max_new=8) for i, p in enumerate(prompts)]
+            serve(server, reqs)
+            out[device] = [r.generated for r in reqs]
+        if out["cuda"] != out["cpu"]:
+            fail(f"{arch} smoke: cuda and cpu generate different tokens: "
+                 f"{out['cuda']} vs {out['cpu']}")
+        print(f"[lm parity] {arch} smoke variant, 5 requests (prompts 20-168 "
+              f"tokens) on 2 lanes: cuda and cpu generate the same "
+              f"{sum(map(len, out['cuda']))} tokens")
+
+
 class Prerecorded:
     """The synthetic source's streams drawn once, in stream-id order, with
     the generators the engine would give them, and replayed to every
@@ -308,8 +625,7 @@ class Prerecorded:
 def serve_counted(torch, sf, engine, source, n_streams: int) -> tuple:
     """One main-path serve with the launch counters zeroed just before
     and read just after."""
-    for k in sf.LAUNCHES:
-        sf.LAUNCHES[k] = 0
+    zero((sf.LAUNCHES,))
     report = engine.serve(source.replay(), n_streams, seed=0)
     torch.cuda.synchronize()
     return report, dict(sf.LAUNCHES)
@@ -363,9 +679,7 @@ def phase_physics(torch, cfg, params, state, events, labels, counters
     for mode in ("kernel", "scan"):       # first calls: allocator, cuDNN
         codesign.make_eval_fn(with_mode(cfg, mode), device="cuda")(
             params, state, events, labels)
-    for c in counters:
-        for k in c:
-            c[k] = 0
+    zero(counters)
     evals = {}
     for lc in circuits:
         for mode in ("kernel", "scan"):
@@ -462,9 +776,13 @@ def phase_physics(torch, cfg, params, state, events, labels, counters
     return launches
 
 
-def profile_eval(torch, fn, args, top: int = 6) -> None:
-    """One eval under torch.profiler: device time by kernel (the largest
-    ``top``) and the share of the eval's wall time the device was busy."""
+def profile_eval(torch, fn, args, top: int = 6, tag: str = "physics",
+                 what: str = "one kernel-mode eval (circuit c)") -> None:
+    """One call under torch.profiler: device time by kernel (the largest
+    ``top``) and the share of the call's wall time the device was busy.
+    Only device-side rows count (kernels, copies, fills): an operator's
+    row repeats the time of the kernels it launched."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -473,18 +791,19 @@ def profile_eval(torch, fn, args, top: int = 6) -> None:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = sorted((e for e in prof.key_averages()
-                      if e.self_device_time_total > 0),
+                      if e.device_type == DeviceType.CUDA
+                      and e.self_device_time_total > 0),
                      key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in kernels)
     if not kernels:
-        print("[physics] profile: no device time recorded, the breakdown "
-              "is not measured")
+        print(f"[{tag}] profile: no device time recorded, the breakdown "
+              f"is not measured")
         return
-    print(f"[physics] profile of one kernel-mode eval (circuit c): wall "
-          f"{wall_us / 1e3:.2f} ms under the profiler, device busy "
-          f"{busy_us / 1e3:.2f} ms ({100 * busy_us / wall_us:.1f} %)")
+    print(f"[{tag}] profile of {what}: wall {wall_us / 1e3:.2f} ms under the "
+          f"profiler, device busy {busy_us / 1e3:.2f} ms "
+          f"({100 * busy_us / wall_us:.1f} %)")
     for e in kernels[:top]:
-        print(f"[physics]   {e.self_device_time_total / 1e3:8.3f} ms "
+        print(f"[{tag}]   {e.self_device_time_total / 1e3:8.3f} ms "
               f"{e.count:4d}x  {e.key[:90]}")
 
 
@@ -572,6 +891,13 @@ def main() -> int:
     k1_rows = phase_p2m_conv(torch, conv_ops, pc, events, params["p2m"],
                              cfg.p2m, leakage.paper_circuits(), flush)
     lif_rows = phase_lif(torch, lif, lif_ref, flush)
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.ssd import ssd as sd
+    from repro_torch.kernels.ssd.ref import ssd_ref
+    fa_rows = phase_flash_attention(torch, fa_ops, fa_ref, flush)
+    ssd_rows = phase_ssd(torch, sd, ssd_ref, flush)
     del flush, write_flush
     print(f"[kernels] after timing: clocks.sm, power.draw, temperature = "
           f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
@@ -662,6 +988,14 @@ def main() -> int:
     print(f"[physics parity] reduced(), kernel mode: cuda vs cpu max "
           f"|logit diff| {diff:.3g}")
 
+    # 8. LM request serving at full width, through K5 and K6
+    counters = (sf.LAUNCHES, pc.LAUNCHES, lif.LAUNCHES, fa.LAUNCHES,
+                sd.LAUNCHES)
+    lm_runs = {arch: phase_lm(torch, arch, counters) for arch in LM_ARCHS}
+
+    # 9. both smoke variants on cuda and on the CPU
+    phase_lm_parity(torch)
+
     names = {"fold": ("stream_fold", "src/repro/kernels/stream_fold/"
                                      "stream_fold.py:81"),
              "fold_mac": ("stream_fold_mac", "src/repro/kernels/stream_fold/"
@@ -684,6 +1018,17 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{source}",
             "replaces": f"src/repro/kernels/{replaces}",
             "launches": phys[row["name"]],
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}})
+    for row, arch, source, replaces in (
+            (fa_rows["bfloat16"], "internlm2-1.8b", "flash_attention.cu",
+             "flash_attention/flash_attention.py:73"),
+            (ssd_rows["bfloat16"], "mamba2-780m", "ssd.cu", "ssd/ssd.py:85")):
+        kernels.append({
+            "name": row["name"], "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": lm_runs[arch]["launches"][row["name"]],
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}})
     print(f"[done] {time.perf_counter() - t_all:.1f} s")

@@ -1,0 +1,167 @@
+"""Mamba-2 (SSD — state-space duality, arXiv:2405.21060) block, serving
+path (the port's ``repro.nn.ssm``; ``ssd_chunked`` and ``ssm_block_apply``
+belong to the training slice and are not ported yet).
+
+Prefill runs the SSD scan through ``kernels/ssd/ops.ssd`` (the CUDA
+kernel on the card, the sequential recurrence on the CPU) and returns the
+final state and the conv tails; decode carries (conv_state, ssm_state) and
+costs O(1) per token. Projections stay split (wz / wx / wbc / wdt), as in
+the reference, so the parameter trees are the same.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import LMConfig
+from repro_torch.kernels.ssd.ops import ssd
+from repro_torch.nn.layers import _device, _full, _normal, cdt, pdt, rmsnorm
+
+Params = dict
+
+
+def ssm_dims(cfg: LMConfig) -> dict:
+    di = cfg.ssm_inner
+    gn = cfg.ssm_groups * cfg.ssm_state
+    return dict(di=di, gn=gn, nh=cfg.ssm_nheads, hp=cfg.ssm_head_dim)
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softplus: log(1 + exp(x)) as logaddexp(x, 0), no threshold."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def ssm_init(gen, cfg: LMConfig, lead: tuple = ()) -> Params:
+    d = ssm_dims(cfg)
+    D = cfg.d_model
+    s = 1.0 / math.sqrt(D)
+    dt = pdt(cfg)
+    dev = _device(gen)
+    f32 = torch.float32
+    nh = d["nh"]
+    lin = torch.linspace(1e-3, 0.1, nh, dtype=f32, device=dev)
+    dt_init = torch.log(torch.exp(lin) - 1.0)                 # inv softplus
+    a_log = torch.log(torch.linspace(1.0, 16.0, nh, dtype=f32, device=dev))
+    # the reference draws out_proj from wbc's key: the same random stream,
+    # so the two leaves of one layer are not independent there; here each
+    # leaf has its own draws (weights are carried across by params_from_jax)
+    return {
+        "wz": _normal(gen, lead + (D, d["di"]), s, dt),
+        "wx": _normal(gen, lead + (D, d["di"]), s, dt),
+        "wbc": _normal(gen, lead + (D, 2 * d["gn"]), s, dt),
+        "wdt": _normal(gen, lead + (D, nh), s, dt),
+        "conv_wx": _normal(gen, lead + (cfg.ssm_conv, d["di"]), 0.2, dt),
+        "conv_bx": _full(gen, lead + (d["di"],), 0.0, dt),
+        "conv_wbc": _normal(gen, lead + (cfg.ssm_conv, 2 * d["gn"]), 0.2, dt),
+        "conv_bbc": _full(gen, lead + (2 * d["gn"],), 0.0, dt),
+        "A_log": a_log.expand(lead + (nh,)).clone(),
+        "D_skip": _full(gen, lead + (nh,), 1.0, f32),
+        "dt_bias": dt_init.expand(lead + (nh,)).clone(),
+        "norm": _full(gen, lead + (d["di"],), 1.0, dt),
+        "out_proj": _normal(gen, lead + (d["di"], D),
+                            (1.0 / math.sqrt(d["di"]))
+                            / math.sqrt(2 * cfg.n_layers), dt),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                 ) -> torch.Tensor:
+    """Depthwise causal conv. x [B,S,C], w [K,C] → [B,S,C]."""
+    K, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    out = xp[:, 0:S, :] * w[0]
+    for i in range(1, K):
+        out = out + xp[:, i:i + S, :] * w[i]
+    return out + b
+
+
+def _project(p: Params, x: torch.Tensor, cfg: LMConfig):
+    """Shared projection path. x [B,S,D] → (z, x_raw, bc_raw, dt_raw)."""
+    dt_ = cdt(cfg)
+    x = x.to(dt_)
+    return (x @ p["wz"].to(dt_), x @ p["wx"].to(dt_),
+            x @ p["wbc"].to(dt_), x @ p["wdt"].to(dt_))
+
+
+def _ssm_block_full(p: Params, x: torch.Tensor, cfg: LMConfig,
+                    chunk: int = 128):
+    """x [B, S, D] → (out [B, S, D], final ssm state [B, nh, hp, N] f32,
+    conv tails {"x": [B, K-1, di], "bc": [B, K-1, 2gn]}); prefill needs all
+    three."""
+    d = ssm_dims(cfg)
+    dt_ = cdt(cfg)
+    B_, S_, _ = x.shape
+    z, x_raw, bc_raw, dt_raw = _project(p, x, cfg)
+    xs = F.silu(_causal_conv(x_raw, p["conv_wx"].to(dt_),
+                             p["conv_bx"].to(dt_)))
+    bcs = F.silu(_causal_conv(bc_raw, p["conv_wbc"].to(dt_),
+                              p["conv_bbc"].to(dt_)))
+    dt = _softplus(dt_raw.float() + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    xh = xs.reshape(B_, S_, d["nh"], d["hp"])
+    Bm = bcs[..., :d["gn"]].reshape(B_, S_, cfg.ssm_groups, cfg.ssm_state)
+    Cm = bcs[..., d["gn"]:].reshape(B_, S_, cfg.ssm_groups, cfg.ssm_state)
+    y, state = ssd(xh, dt, A, Bm, Cm, chunk=chunk)
+    y = y + p["D_skip"].to(y.dtype)[:, None] * xh
+    y = y.reshape(B_, S_, d["di"])
+    y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    out = y @ p["out_proj"].to(dt_)
+    K = cfg.ssm_conv
+    tails = {"x": x_raw[:, -(K - 1):, :], "bc": bc_raw[:, -(K - 1):, :]}
+    return out, state, tails
+
+
+# ---------------------------------------------------------------------------
+# decode path — O(1) per token
+# ---------------------------------------------------------------------------
+
+def ssm_init_cache(cfg: LMConfig, batch: int, dtype, device=None,
+                   lead: tuple = ()) -> dict:
+    d = ssm_dims(cfg)
+    z = dict(device=device)
+    return {
+        "conv_x": torch.zeros(lead + (batch, cfg.ssm_conv - 1, d["di"]),
+                              dtype=dtype, **z),
+        "conv_bc": torch.zeros(lead + (batch, cfg.ssm_conv - 1, 2 * d["gn"]),
+                               dtype=dtype, **z),
+        "state": torch.zeros(lead + (batch, d["nh"], d["hp"], cfg.ssm_state),
+                             dtype=torch.float32, **z),
+    }
+
+
+def ssm_block_decode(p: Params, x: torch.Tensor, cache: dict, cfg: LMConfig
+                     ) -> tuple[torch.Tensor, dict]:
+    """x: [B, 1, D] one token. Returns (y [B,1,D], new cache)."""
+    d = ssm_dims(cfg)
+    dt_ = cdt(cfg)
+    B_ = x.shape[0]
+    z, x_raw, bc_raw, dt_raw = (t[:, 0] for t in _project(p, x[:, 0:1], cfg))
+
+    def conv_step(win_cache, new, w, b):
+        win = torch.cat([win_cache, new[:, None, :].to(win_cache.dtype)],
+                        dim=1)                                     # [B,K,C]
+        out = torch.einsum("bkc,kc->bc", win.to(dt_), w.to(dt_)) + b.to(dt_)
+        return F.silu(out), win[:, 1:, :]
+
+    xs, new_cx = conv_step(cache["conv_x"], x_raw, p["conv_wx"], p["conv_bx"])
+    bcs, new_cbc = conv_step(cache["conv_bc"], bc_raw, p["conv_wbc"],
+                             p["conv_bbc"])
+    dt = _softplus(dt_raw.float() + p["dt_bias"])                 # [B,nh]
+    A = -torch.exp(p["A_log"])
+    hr = d["nh"] // cfg.ssm_groups
+    xh = xs.reshape(B_, d["nh"], d["hp"]).float()
+    Bm = bcs[..., :d["gn"]].reshape(B_, cfg.ssm_groups, cfg.ssm_state
+                                    ).repeat_interleave(hr, 1).float()
+    Cm = bcs[..., d["gn"]:].reshape(B_, cfg.ssm_groups, cfg.ssm_state
+                                    ).repeat_interleave(hr, 1).float()
+    decay = torch.exp(dt * A)                                     # [B,nh]
+    state = (cache["state"] * decay[..., None, None]
+             + torch.einsum("bh,bhn,bhp->bhpn", dt, Bm, xh))
+    y = torch.einsum("bhn,bhpn->bhp", Cm, state)
+    y = y + p["D_skip"][:, None] * xh
+    y = y.reshape(B_, d["di"]).to(dt_)
+    y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    y = (y @ p["out_proj"].to(dt_))[:, None, :]
+    return y, {"conv_x": new_cx, "conv_bc": new_cbc, "state": state}

@@ -1,5 +1,5 @@
-"""PyTorch port: the CUDA kernels (streaming fold, P²M conv, LIF) against
-their plain versions, on the card. Imports no JAX, so it runs on the machine with the
+"""PyTorch port: the CUDA kernels (streaming fold, P²M conv, LIF, flash
+attention, SSD) against their plain versions, on the card. Imports no JAX, so it runs on the machine with the
 card: ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 Without a GPU every test here skips."""
 from __future__ import annotations
@@ -222,3 +222,162 @@ def test_cuda_lif_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match=r"\[T, N\]"):
         lif.lif(x[None])
     assert lif.LAUNCHES["lif"] == n
+
+
+# ---------------------------------------------------------------------------
+# K5: the flash-attention kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _fa_limit(want, abs_attn, dtype):
+    """Per-element limit against the float32 plain version. float32: 2e-3
+    (float32 sums in another order). bfloat16: the kernel rounds each p to
+    bfloat16 before PV (relative error <= u = 2^-8 each, so <= u times the
+    attention of |v|) and rounds the output (<= u |o|); the limit is their
+    sum, with 2^-6 of the first and 1e-5 to spare for float32 order."""
+    if dtype == torch.float32:
+        return torch.full_like(want, 2e-3)
+    u = 2.0 ** -8
+    return u * want.abs() + u * (1 + 2.0 ** -6) * abs_attn + 1e-5
+
+
+def _qkv(seed, shapes, dtype, device):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        device, dtype) for s in shapes]
+
+
+def _check_gqa(q, k, v, causal, kv_len):
+    """One launch of gqa_attention on the card, held per element against
+    attention_ref on the same values reshaped to [B H, S, d]."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ops import gqa_attention
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    B, Sq, H, d = q.shape
+    n = fa.LAUNCHES["flash_attention"]
+    got = gqa_attention(q, k, v, causal=causal, kv_len=kv_len)
+    assert fa.LAUNCHES["flash_attention"] == n + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    bh = [t.float().repeat_interleave(H // t.shape[2], dim=2).transpose(1, 2)
+          .reshape(B * H, t.shape[1], d) for t in (q, k, v)]
+    want = attention_ref(*bh, causal=causal, kv_len=kv_len)
+    abs_attn = attention_ref(bh[0], bh[1], bh[2].abs(), causal=causal,
+                             kv_len=kv_len)
+    got = got.float().transpose(1, 2).reshape(B * H, Sq, d)
+    torch.cuda.synchronize()
+    limit = _fa_limit(want, abs_attn, q.dtype)
+    assert ((got - want).abs() <= limit).all(), (
+        f"max |diff| {(got - want).abs().max().item()}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,causal,sq,skv,kv_len", [
+    (16, True, 64, 64, None),
+    (64, False, 100, 130, None),      # Sq and Skv off the 64-row tile: pad
+    (128, True, 200, 200, None),
+    (128, False, 1, 96, 40),          # decode-like, kv_len masks the tail
+    (32, True, 128, 128, 70),         # causal and kv_len together
+])
+def test_cuda_flash_attention_vs_plain(cuda_device, dtype, d, causal, sq, skv,
+                                       kv_len):
+    """Three heads of two rows, G = 1, in gqa_attention's [B, S, H, d]
+    layout (a row stride of H d, as at serving)."""
+    q, k, v = _qkv(d + sq, [(2, sq, 3, d), (2, skv, 3, d), (2, skv, 3, d)],
+                   dtype, cuda_device)
+    _check_gqa(q, k, v, causal, kv_len)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,kv_len", [(True, None), (False, 50)])
+def test_cuda_gqa_attention_groups(cuda_device, dtype, causal, kv_len):
+    """G = 2 query heads per kv head, indexed in the kernel."""
+    q, k, v = _qkv(5, [(2, 77, 4, 64), (2, 77, 2, 64), (2, 77, 2, 64)], dtype,
+                   cuda_device)
+    _check_gqa(q, k, v, causal, kv_len)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_rejects_bad_inputs(cuda_device):
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    q = torch.zeros((1, 8, 2, 16), device=cuda_device)
+    n = fa.LAUNCHES["flash_attention"]
+    with pytest.raises(TypeError):
+        fa.gqa_attention_cuda(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.gqa_attention_cuda(q, q.cpu(), q)
+    with pytest.raises(ValueError, match="head dim"):
+        z = torch.zeros((1, 8, 2, 24), device=cuda_device)
+        fa.gqa_attention_cuda(z, z, z)
+    with pytest.raises(ValueError, match="bad shapes"):
+        fa.gqa_attention_cuda(torch.zeros((1, 8, 3, 16), device=cuda_device),
+                              q, q)
+    with pytest.raises(ValueError, match="aligned"):
+        off = torch.zeros(q.numel() + 1, device=cuda_device)[1:].view(q.shape)
+        fa.gqa_attention_cuda(off, q, q)
+    assert fa.LAUNCHES["flash_attention"] == n
+
+
+# ---------------------------------------------------------------------------
+# K6: the SSD kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _ssd_args(seed, b, s, h, p, g, n, dtype, device):
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)  # noqa: E731
+    x = f(rng.standard_normal((b, s, h, p))).to(dtype)
+    dt = f(np.log1p(np.exp(rng.standard_normal((b, s, h)))))
+    A = f(-np.exp(rng.standard_normal(h) * 0.3))
+    B = f(rng.standard_normal((b, s, g, n))).to(dtype)
+    C = f(rng.standard_normal((b, s, g, n))).to(dtype)
+    return x, dt, A, B, C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk,dtype", [
+    (1, 64, 2, 16, 1, 16, 16, torch.float32),
+    (2, 96, 4, 32, 2, 8, 32, torch.float32),      # g < h
+    (1, 50, 2, 16, 2, 4, 16, torch.float32),      # pad, g == h
+    (1, 200, 4, 64, 1, 128, 128, torch.float32),  # pad, the mamba2 widths
+    (2, 256, 6, 64, 2, 128, 128, torch.bfloat16),
+    (1, 130, 3, 16, 3, 32, 64, torch.bfloat16),
+])
+def test_cuda_ssd_vs_plain(cuda_device, b, s, h, p, g, n, chunk, dtype):
+    """y and state within relative error 1e-3 (of the largest magnitude) of
+    the plain float32 recurrence on the same inputs; a bfloat16 y may also
+    sit one bfloat16 step (2^-8 relative) away, the rounding of its
+    output."""
+    from repro_torch.kernels.ssd import ssd as ssd_mod
+    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.kernels.ssd.ref import ssd_ref
+    args = _ssd_args(s + h + n, b, s, h, p, g, n, dtype, cuda_device)
+    k = ssd_mod.LAUNCHES["ssd"]
+    y, st = ssd(*args, chunk=chunk)
+    assert ssd_mod.LAUNCHES["ssd"] == k + 1
+    y_r, st_r = ssd_ref(*args)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and st.dtype == torch.float32
+    rtol = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(y.float(), y_r.float(), rtol=rtol,
+                               atol=1e-3 * float(y_r.float().abs().max()))
+    torch.testing.assert_close(st, st_r, rtol=0,
+                               atol=1e-3 * float(st_r.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_rejects_bad_inputs(cuda_device):
+    from repro_torch.kernels.ssd import ssd as ssd_mod
+    x, dt, A, B, C = _ssd_args(0, 1, 32, 2, 16, 1, 8, torch.float32,
+                               cuda_device)
+    n = ssd_mod.LAUNCHES["ssd"]
+    with pytest.raises(TypeError):
+        ssd_mod.ssd_cuda(x, dt.double(), A, B, C)
+    with pytest.raises(TypeError):
+        ssd_mod.ssd_cuda(x, dt, A, B.bfloat16(), C)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_mod.ssd_cuda(x, dt, A.cpu(), B, C)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_mod.ssd_cuda(x, dt, A, B, C, chunk=48)
+    with pytest.raises(ValueError, match="bad shapes"):
+        ssd_mod.ssd_cuda(x, dt, A[:1], B, C)
+    assert ssd_mod.LAUNCHES["ssd"] == n
