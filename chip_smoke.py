@@ -16,17 +16,21 @@ no ``ok`` line):
                 needs (bound) and one PyTorch library call's where one
                 computes the same function: the streaming-fold kernels at
                 the serving shapes (N = 16·128·128, F = 16, K = 18;
-                S ∈ {1, 4}); the P²M conv kernel on the physics batch (4
+                S ∈ {1, 4}; the deposit fold's vector route, and its scalar
+                route on the same values with the deposits copied off the
+                16-byte grid); the P²M conv kernel on the physics batch (4
                 synthetic-gesture samples × 4000 ms at 128×128, drawn on the
                 host first) for the three paper circuits and for one; the
                 LIF kernel in float32 and bfloat16 at the backbone's largest
                 LIF call (T 4, N 524,288) and at T 64, N 16,384; the
                 flash-attention kernel through gqa_attention at the
                 internlm2-1.8b prefill (q/k/v [1, 2048, 16, 128], causal;
-                bfloat16 held per element, see ``fa_limit``) and the SSD
-                kernel at the mamba2-780m prefill (x [1, 2048, 48, 64], n
-                128, g 1, chunk 128), each in float32 and bfloat16 and on a
-                padded shape;
+                bfloat16 held per element, see ``fa_limit``), without the
+                mask and at d 64 and 32 (bf16 runs both its kernels, see
+                ``FA_CASES``), and the SSD kernel at the mamba2-780m
+                prefill (x [1, 2048, 48, 64], n 128, g 1, chunk 128), each
+                in float32 and bfloat16 and on padded shapes (K5: Sq 100,
+                G 2, with B 1 and B 2, d 128, 32 and 16);
   4. slice    — the paper's full-width configuration (configs/p2m_dvs.CONFIG)
                 as a fresh seeded deployment (backbone gain doubled so its
                 head spikes, see ``awake``), saved and reloaded through the
@@ -137,6 +141,15 @@ def bound_ms(n_bytes: float, n_flops: float, peak: float = FP32_FLOPS
                                        else "operations")
 
 
+def misaligned(torch, t):
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def phase_kernels(torch, sf, ref, flush, write_flush) -> dict:
     """Both fold kernels against their plain versions at the serving
     shapes."""
@@ -148,16 +161,26 @@ def phase_kernels(torch, sf, ref, flush, write_flush) -> dict:
         x0 = (torch.randn((N, F), generator=gen) * 0.05).to(dev)
         dep = (torch.randn((S, N, F), generator=gen) * 0.01).to(dev)
         a = torch.exp(-torch.rand(F, generator=gen) * 0.01).to(dev)
-        got = sf.stream_fold_cuda(x0, dep, a)
+        # the same deposits off the 16-byte grid take the scalar route
+        dep_off = misaligned(torch, dep)
+        for r, d in (("vector", dep), ("scalar", dep_off)):
+            if sf.fold_route(x0, d, a) != r:
+                fail(f"stream_fold S={S} at the serving shape does not take "
+                     f"the {r} route")
         want = ref.stream_fold_ref(x0, dep, a)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        if not torch.equal(got, want):
-            fail(f"stream_fold S={S} is not bit-exact (max |diff| {err})")
+        for r, d in (("vector", dep), ("scalar", dep_off)):
+            got = sf.stream_fold_cuda(x0, d, a)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            if not torch.equal(got, want):
+                fail(f"stream_fold S={S} {r} route is not bit-exact (max "
+                     f"|diff| {err})")
         b, by = bound_ms((S + 2) * N * F * 4 + F * 4, 2 * S * N * F)
         row = {"name": "stream_fold", "S": S, "max_abs_err": err,
                "ms": time_ms(lambda: sf.stream_fold_cuda(x0, dep, a), torch,
                              flush=flush),
+               "scalar_ms": time_ms(lambda: sf.stream_fold_cuda(
+                   x0, dep_off, a), torch, flush=flush),
                "plain_ms": time_ms(lambda: ref.stream_fold_ref(x0, dep, a),
                                    torch, flush=flush),
                "bound_ms": b, "bound_by": by,
@@ -189,6 +212,11 @@ def phase_kernels(torch, sf, ref, flush, write_flush) -> dict:
     for row in rows.values():
         print_row(row, f"S={row['S']} N={N} F={F}"
                   f"{' K=%d' % K if row['name'].endswith('mac') else ''}")
+        if "scalar_ms" in row:
+            print(f"[kernels] stream_fold      S={row['S']}: vector route "
+                  f"{row['ms']:.4f} ms, scalar route {row['scalar_ms']:.4f} "
+                  f"ms on the same values (deposits off the 16-byte grid), "
+                  f"both bit-exact")
     # the timing method itself: the same launch after a write flush, and
     # without the spin (host launch work inside the timed window)
     dep1 = dep[:1].contiguous()
@@ -318,65 +346,87 @@ def fa_limit(want, abs_attn, dtype, torch):
     return u * want.abs() + u * (1 + 2.0 ** -6) * abs_attn + 1e-5
 
 
+# K5's cases: (B, S, H, KV, d, causal, timed row or None). bf16 runs the
+# wgmma kernel at d 64 and 128 and the mma.sync kernel at d 16 and 32;
+# the padded cases put Sq off the 128-row tile, and with B 2 a row read or
+# stored past Sq would land in the next batch
+FA_CASES = (
+    (1, LM_PROMPT, 16, 16, 128, True, ""),          # the internlm2 prefill
+    (1, LM_PROMPT, 16, 16, 128, False, "_noncausal"),
+    (1, LM_PROMPT, 16, 16, 64, True, "_d64"),
+    (1, LM_PROMPT, 16, 16, 32, True, "_d32"),
+    (1, 100, 16, 8, 128, True, None),
+    (2, 100, 16, 8, 128, True, None),
+    (2, 100, 16, 8, 32, True, None),
+    (2, 100, 16, 8, 16, False, None),
+)
+
+
 def phase_flash_attention(torch, ops, fa_ref, flush) -> dict:
-    """K5 through ``ops.gqa_attention`` at the internlm2-1.8b prefill (q/k/v
-    [1, 2048, 16, 128] as project_qkv lays them out: one 2048-token prompt,
-    its 16 physical heads, G = 1, causal) and on a padded shape (Sq 100)
-    with G = 2 (k/v [1, 100, 8, 128]), in float32 and bfloat16. Each is
-    held per element against attention_ref on the same values reshaped to
-    [B H, S, d] (K/V repeated to every query head), and the first timed
-    beside the op's plain version and scaled_dot_product_attention."""
+    """K5 through ``ops.gqa_attention`` on each of ``FA_CASES`` in float32
+    and bfloat16: the internlm2-1.8b prefill (q/k/v [1, 2048, 16, 128] as
+    project_qkv lays them out: one 2048-token prompt, its 16 physical
+    heads, G = 1, causal), the same shape without the mask and at d 64 and
+    32, and padded shapes (Sq 100, G 2, B 1 and 2). Each is held per
+    element against attention_ref on the same values reshaped to
+    [B H, S, d] (K/V repeated to every query head); the 2048-token ones
+    are timed beside the op's plain version and
+    scaled_dot_product_attention. Rows are keyed by type and case, the
+    serving shape's by type alone."""
     import torch.nn.functional as F
     gen = torch.Generator().manual_seed(3)
     rows = {}
-    for B, S, H, KV, d in ((1, LM_PROMPT, 16, 16, 128), (1, 100, 16, 8, 128)):
+    for B, S, H, KV, d, causal, tag in FA_CASES:
         G = H // KV
+        mask = "causal" if causal else "non-causal"
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
             q = torch.randn((B, S, H, d), generator=gen).to("cuda", dtype)
             k, v = (torch.randn((B, S, KV, d), generator=gen).to("cuda", dtype)
                     for _ in range(2))
-            got = ops.gqa_attention(q, k, v, causal=True)
+            got = ops.gqa_attention(q, k, v, causal=causal)
             bh = [t.float().repeat_interleave(H // t.shape[2], dim=2)
                   .transpose(1, 2).reshape(B * H, S, d) for t in (q, k, v)]
-            want = fa_ref.attention_ref(*bh, causal=True)
+            want = fa_ref.attention_ref(*bh, causal=causal)
             abs_attn = fa_ref.attention_ref(bh[0], bh[1], bh[2].abs(),
-                                            causal=True)
+                                            causal=causal)
             got = got.float().transpose(1, 2).reshape(B * H, S, d)
             torch.cuda.synchronize()
             diff = (got - want).abs()
             share = (diff / fa_limit(want, abs_attn, dtype, torch)).max().item()
             err = diff.max().item()
             if not share <= 1.0:
-                fail(f"flash_attention q [{B}, {S}, {H}, {d}] G {G} {name}: "
-                     f"max |diff| {err}, {share:.3g} times the limit")
+                fail(f"flash_attention q [{B}, {S}, {H}, {d}] G {G} {mask} "
+                     f"{name}: max |diff| {err}, {share:.3g} times the limit")
             del got, want, abs_attn, bh, diff
             print(f"[kernels] flash_attention  q [{B}, {S}, {H}, {d}] G {G} "
-                  f"causal {name}: max|diff| {err:.3g}, at most "
+                  f"{mask} {name}: max|diff| {err:.3g}, at most "
                   f"{share:.3g} of the per-element limit")
-            if S != LM_PROMPT:
+            if tag is None:
                 continue
-            # QK^T and PV: 4 d flops for each (q, k) pair with k <= q; the
-            # bf16 work belongs on the tensor cores, float32 on the CUDA cores
-            n_flops = 4 * B * H * d * S * (S + 1) // 2
+            # QK^T and PV: 4 d flops for each (q, k) pair the mask keeps;
+            # the bf16 work belongs on the tensor cores, float32 on the
+            # CUDA cores
+            pairs = S * (S + 1) // 2 if causal else S * S
             b, by = bound_ms(2 * (H + KV) * B * S * d * q.element_size(),
-                             n_flops, BF16_TC_FLOPS if dtype == torch.bfloat16
+                             4 * B * H * d * pairs,
+                             BF16_TC_FLOPS if dtype == torch.bfloat16
                              else FP32_FLOPS)
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             row = {"name": "flash_attention", "max_abs_err": err,
                    "limit_share": share,
                    "ms": time_ms(lambda: ops.gqa_attention(q, k, v,
-                                                           causal=True),
+                                                           causal=causal),
                                  torch, flush=flush),
                    "plain_ms": time_ms(lambda: fa_ref.gqa_attention_ref(
-                       q, k, v, causal=True), torch, flush=flush),
+                       q, k, v, causal=causal), torch, flush=flush),
                    "bound_ms": b, "bound_by": by,
                    "library_ms": time_ms(
                        lambda: F.scaled_dot_product_attention(
-                           qt, kt, vt, is_causal=True),
+                           qt, kt, vt, is_causal=causal),
                        torch, flush=flush)}
-            rows[name] = row
-            print_row(row, f"q [{B}, {S}, {H}, {d}] causal {name}")
+            rows[name + tag] = row
+            print_row(row, f"q [{B}, {S}, {H}, {d}] {mask} {name}")
             del q, k, v, qt, kt, vt
     return rows
 
@@ -934,9 +984,11 @@ def main() -> int:
             fail(f"{mode}: {len(rep.results)} of {N_LANES} streams finished")
         if not np.isfinite([r.logits for r in rep.results]).all():
             fail(f"{mode}: non-finite logits")
+        # the deposit fold counts its two routes apart: serving must take
+        # the float4 one on every chunk, the one-float one never
         if counts[counter] != expected or sum(counts.values()) != expected:
             fail(f"{mode}: launches {counts}, expected {expected} of "
-                 f"{counter}")
+                 f"{counter} and none of any other kernel")
         art = rep.to_artifact()
         lat, thr = art["latency_ms"], art["throughput"]
         print(f"[slice] fold={mode} on {kind}: {len(rep.results)} streams, "

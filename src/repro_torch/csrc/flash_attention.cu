@@ -12,40 +12,61 @@
 // they lie: the kv head of query head h is h / G, so GQA needs no repeated
 // K/V and no transposes (the TPU wrapper repeated K/V and flattened heads).
 //
-// Both kernels run one block per (64 query rows, b * H + h), 4 warps of 16
-// rows each. A block walks the kv tiles of 64 keys in order up to the
-// causal limit of its last row (tiles masked for every row are never
-// loaded, as the TPU kernel clamped its kv extent), keeping the
-// online-softmax state m, l and the output accumulator in float32
-// registers. Scores are masked with a finite NEG_INF (-1e30, as the TPU
-// kernel) and p is zeroed on masked keys, so a row whose keys are all
-// masked ends as 0 / max(0, 1e-20) = 0. Sq and Skv are padded to the tile
-// by bounds checks, never by copies. exp is expf, not __expf; p is rounded
-// to V's type before the PV product while l sums the unrounded p (the TPU
-// kernel and nn/layers.attention_core do the same); out = acc / max(l,
-// 1e-20), rounded to the input type.
+// Three kernels, chosen by type and head dim d (never after a failure):
 //
-// float32 (flash_f32_kernel): FMA loops on the CUDA cores, never TF32, so
-// a float32 input keeps float32 accuracy. Each lane owns 4 rows x 8 keys
-// of a score tile and 4 rows x d/8 output columns; a row's running max
-// and sum live in the 8 lanes that share it. Q stays in shared memory; one
-// kv buffer holds a tile's K, then its V; P goes through shared memory.
+// float32, every d (flash_f32_kernel): FMA loops on the CUDA cores, never
+// TF32, so a float32 input keeps float32 accuracy. One block per (64 query
+// rows, b * H + h), 4 warps; each lane owns 4 rows x 8 keys of a score tile
+// and 4 rows x d/8 output columns; a row's running max and sum live in the
+// 8 lanes that share it. Q stays in shared memory; one kv buffer holds a
+// tile's K, then its V; P goes through shared memory.
 //
-// bfloat16 (flash_bf16_kernel): both products on the tensor cores with
-// mma.sync m16n8k16 (bf16 in, float32 accumulate). Each warp keeps its 16
-// rows of Q as A fragments in registers for the whole walk; S = Q K^T
-// lands in C fragments (a thread holds rows g and g + 8, g = lane / 4, and
-// 2 keys of every 8), whose layout is that of the A fragment of P for the
-// PV product, so P never leaves the registers. K and V are staged
-// row-major in bf16; a B fragment of K is two 32-bit shared loads, one of
-// V one ldmatrix.trans.
+// bfloat16, d 64 and 128 (wg::flash_wgmma_kernel): the Hopper design, see
+// its own note below. One block per (128 query rows, b * H + h), two
+// consumer warpgroups and a TMA producer warp; both products are wgmma.
+//
+// bfloat16, d 16 and 32 (flash_bf16_kernel): mma.sync m16n8k16 with one
+// block per (64 query rows, b * H + h), 4 warps of 16 rows. At these widths
+// a 64-row wgmma tile would be mostly padding of the reduction and a TMA
+// box row would be 32 or 64 bytes, so the warp-level products stay. Each
+// warp keeps its 16 rows of Q as A fragments in registers; S = Q K^T lands
+// in C fragments (a thread holds rows g and g + 8, g = lane / 4, and 2
+// keys of every 8), whose layout is that of the A fragment of P for the PV
+// product, so P never leaves the registers. K and V are staged row-major
+// by 16-byte loads; a B fragment of V is one ldmatrix.trans.
+//
+// Common to all three: the kv tiles are walked in order up to the causal
+// limit of the block's last row (tiles masked for every row are never
+// loaded, as the TPU kernel clamped its kv extent), with the online-softmax
+// state m, l and the output accumulator in float32 registers. Scores are
+// masked with a finite NEG_INF (-1e30, as the TPU kernel) and p is zeroed
+// on masked keys, so a row whose keys are all masked ends as
+// 0 / max(0, 1e-20) = 0. p is rounded to V's type before the PV product
+// while l sums the unrounded p (the TPU kernel and nn/layers.attention_core
+// do the same); out = acc / max(l, 1e-20), rounded to the input type. The
+// float32 and mma.sync kernels take exp as expf of s / sqrt(d) - m; the
+// wgmma kernel as exp2f(s * log2(e) / sqrt(d) - m) with m kept in that
+// log2 domain (a relative difference of ~1e-7 in p, far inside the 2^-8
+// of p's rounding to bf16).
 //
 // Bound: operations. Causal at B*H = 16, S = 2048, d = 128 the work is
 // ~17 GFLOP against ~34 MB of q, k, v and o in bfloat16: tensor-core work
-// (989 TFLOP/s bf16 dense). In float32 the CUDA cores' 67 TFLOP/s bound it.
+// (989 TFLOP/s bf16 dense, 17.4 us) ahead of the bytes (10 us at 3.35
+// TB/s). The earlier mma.sync kernel at that shape reached 8 % of the bound:
+// a block staged each K/V tile with every thread between two
+// __syncthreads (no copy overlapped a product), issued warp-level
+// mma.sync, masked every element of every tile and launched its longest
+// causal blocks last. The wgmma kernel answers each point: TMA loads in a
+// two-stage ring run ahead of the products, wgmma reads Q and K straight
+// from swizzled shared memory, only a tile on the diagonal or across
+// kv_len is masked, and the grid starts the longest blocks first. In
+// float32 the CUDA cores' 67 TFLOP/s bound it.
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -415,6 +436,273 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---- bfloat16, d 64 and 128: wgmma + TMA --------------------------------
+//
+// One block per (128 query rows, b * H + h): warps 0-7 are two consumer
+// warpgroups of 64 rows each, warp 8 the producer. The producer's one
+// thread loads the block's Q once and then K and V of each 128-key tile
+// with TMA into a two-stage ring, each stage with a full barrier for K, one
+// for V and an empty barrier the two consumers arrive on once they are
+// done with it, so the next tile's loads run while this one is multiplied.
+// A consumer runs S = Q K^T as wgmma m64n128k16 with both operands in
+// shared memory, the online softmax on S in registers, and O += P V as
+// wgmma m64nDk16 with P from registers (S's accumulator layout is P's A
+// fragment, as in the mma.sync route) and V MN-major from shared memory.
+//
+// The tensor maps are 4-D over (d, heads, S, B) with boxes of (64, 1, 128,
+// 1) into 128-byte swizzled rows: the row stride H d (or KV d) is the
+// tensor's own, and rows past Sq or Skv are zero-filled within the batch,
+// never read from batch b + 1. The output is written from the accumulator
+// registers by each thread, rows >= Sq skipped, so no store crosses into
+// the next batch either. Blocks run longest causal row range first (grid
+// y reversed, all heads of one query tile together).
+namespace wg {
+
+constexpr int kBQ = 128;           // query rows per block
+constexpr int kBK = 128;           // keys per kv tile
+constexpr int kStages = 2;
+constexpr int kConsumers = 256;    // two warpgroups
+constexpr int kThreads = kConsumers + 32;
+constexpr int kChunk = 64;         // bf16 columns of one 128-byte row
+constexpr int kRowBytes = 128;
+
+template <int D>
+struct Layout {
+  static constexpr int kQBytes = kBQ * D * 2;
+  static constexpr int kKVBytes = kBK * D * 2;    // one K or V tile
+  static constexpr int kBarOffset = kQBytes + 2 * kStages * kKVBytes;
+  // + barriers and the slack to align the base to 1024 bytes
+  static constexpr int kBytes = kBarOffset + 64 + 1024;
+};
+
+template <int D>
+__device__ __forceinline__ void pv(float (&acc)[D / 2], const uint32_t (&a)[4],
+                                   uint64_t desc) {
+  if constexpr (D == 128) {
+    hopper::wgmma_rs_m64n128k16(acc, a, desc, 1);
+  } else {
+    hopper::wgmma_rs_m64n64k16(acc, a, desc, 1);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map,
+                   bf16* __restrict__ o, int n_heads, int n_kv_heads, int sq,
+                   int kv_len, int causal, float scale_log2) {
+  using L = Layout<D>;
+  constexpr int kChunks = D / kChunk;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* qs = base;                        // [chunk][kBQ][128 B]
+  unsigned char* ks = qs + L::kQBytes;             // [stage][chunk][kBK][128 B]
+  unsigned char* vs = ks + kStages * L::kKVBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(base + L::kBarOffset);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* empty = v_full + kStages;
+
+  const int bh = blockIdx.x;
+  const int b = bh / n_heads, h = bh % n_heads;
+  const int kvh = h / (n_heads / n_kv_heads);
+  // the longest causal blocks start first, so the short ones fill the tail
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  int kv_hi = kv_len;
+  if (causal) kv_hi = min(kv_hi, min(q0 + kBQ, sq));
+  const int n_tiles = (kv_hi + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(k_full + s, 1);
+      hopper::mbar_init(v_full + s, 1);
+      hopper::mbar_init(empty + s, 2);       // one arrival per consumer
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {           // the producer warp
+    if (threadIdx.x == kConsumers && n_tiles > 0) {
+      hopper::mbar_expect_tx(q_full, L::kQBytes);
+#pragma unroll
+      for (int c = 0; c < kChunks; ++c) {
+        hopper::tma_load_4d(qs + c * kBQ * kRowBytes, &q_map, q_full,
+                            c * kChunk, h, q0, b);
+      }
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) hopper::mbar_wait(empty + s, (t / kStages - 1) & 1);
+        unsigned char* kt = ks + s * L::kKVBytes;
+        unsigned char* vt = vs + s * L::kKVBytes;
+        hopper::mbar_expect_tx(k_full + s, L::kKVBytes);
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c) {
+          hopper::tma_load_4d(kt + c * kBK * kRowBytes, &k_map, k_full + s,
+                              c * kChunk, kvh, t * kBK, b);
+        }
+        hopper::mbar_expect_tx(v_full + s, L::kKVBytes);
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c) {
+          hopper::tma_load_4d(vt + c * kBK * kRowBytes, &v_map, v_full + s,
+                              c * kChunk, kvh, t * kBK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wgi = threadIdx.x / 128;          // consumer warpgroup
+  const int tid = threadIdx.x % 128;
+  const int lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int r_min = q0 + wgi * 64;            // the warpgroup's first row
+  const int row = r_min + (tid >> 5) * 16 + g;  // and rows row, row + 8
+  const uint32_t q_addr = hopper::smem_u32(qs) + wgi * 64 * kRowBytes;
+
+  float acc[D / 2];                           // O, m64nD accumulator
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+
+  if (n_tiles > 0) hopper::mbar_wait(q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages;
+    const uint32_t parity = (t / kStages) & 1;
+    const int k0 = t * kBK;
+
+    // S = Q K^T (m64n128, d / 16 k-steps)
+    float sc[kBK / 2];
+    hopper::mbar_wait(k_full + s, parity);
+    const uint32_t k_addr = hopper::smem_u32(ks + s * L::kKVBytes);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kBQ * kRowBytes + (kk % 4) * 32;
+      const uint32_t koff = (kk / 4) * kBK * kRowBytes + (kk % 4) * 32;
+      hopper::wgmma_ss_m64n128k16(
+          sc, hopper::desc_sw128(q_addr + off, 16, 1024),
+          hopper::desc_sw128(k_addr + koff, 16, 1024), kk > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(sc);
+
+    // masks only where the tile crosses the diagonal or kv_len
+    const bool masked = (causal && k0 + kBK - 1 > r_min) || k0 + kBK > kv_len;
+    if (masked) {
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = k0 + 8 * j + 2 * tq + (e & 1);
+          const int qp = row + 8 * (e >> 1);
+          if (kp >= kv_len || (causal && kp > qp)) sc[4 * j + e] = kNegInf;
+        }
+    }
+
+    // online softmax in the log2 domain: p = 2^(s scale log2(e) - m)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {             // rows row and row + 8
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+        mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * i], sc[4 * j + 2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[i], mx * scale_log2);
+      const float corr = exp2f(m[i] - m_new);
+      float rs = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int e = 2 * i; e < 2 * i + 2; ++e) {
+          float& x = sc[4 * j + e];
+          const float p = exp2f(fmaf(x, scale_log2, -m_new));
+          x = (masked && x == kNegInf) ? 0.0f : p;
+          rs += x;
+        }
+      l[i] = l[i] * corr + rs;
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j + 2 * i] *= corr;
+        acc[4 * j + 2 * i + 1] *= corr;
+      }
+    }
+
+    // P in bf16 as the A fragments of PV's 16-key steps
+    uint32_t pa[kBK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      pa[kk][0] = pack(sc[8 * kk + 0], sc[8 * kk + 1]);
+      pa[kk][1] = pack(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack(sc[8 * kk + 6], sc[8 * kk + 7]);
+    }
+
+    // O += P V (m64nD, 8 k-steps of 16 keys; V MN-major)
+    hopper::mbar_wait(v_full + s, parity);
+    const uint32_t v_addr = hopper::smem_u32(vs + s * L::kKVBytes);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      pv<D>(acc, pa[kk], hopper::desc_sw128(v_addr + kk * 16 * kRowBytes,
+                                            kBK * kRowBytes, 1024));
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(acc);
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) hopper::fence_operands(pa[kk]);
+    if (tid == 0) hopper::mbar_arrive(empty + s);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    const int qr = row + 8 * i;
+    if (qr < sq) {
+      const float den = fmaxf(li, 1e-20f);
+      bf16* orow = o + ((static_cast<int64_t>(b) * sq + qr) * n_heads + h) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * tq) =
+            pack(acc[4 * j + 2 * i] / den, acc[4 * j + 2 * i + 1] / den);
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   int b, int h, int kv, int sq, int skv, int kv_len,
+                   int causal, cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  cudaError_t err = hopper::map_bf16_4d(&qm, q, D, h, sq, b, kBQ);
+  if (err == cudaSuccess) err = hopper::map_bf16_4d(&km, k, D, kv, skv, b, kBK);
+  if (err == cudaSuccess) err = hopper::map_bf16_4d(&vm, v, D, kv, skv, b, kBK);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_wgmma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Layout<D>::kBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(b * h, (sq + kBQ - 1) / kBQ);
+  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
+  flash_wgmma_kernel<D><<<grid, kThreads, Layout<D>::kBytes, stream>>>(
+      qm, km, vm, static_cast<bf16*>(o), h, kv, sq, kv_len, causal,
+      scale_log2);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
 // one launch of the kernel for the pointers' type
 template <int D>
 cudaError_t start(dim3 grid, cudaStream_t st, const float* q, const float* k,
@@ -458,7 +746,12 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int b,
              int h, int kv, int sq, int skv, int d, int kv_len, int causal,
              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b * h > 65535 || kv <= 0 || h % kv) return static_cast<int>(cudaErrorInvalidValue);
+  if (kv <= 0 || h % kv) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (std::is_same_v<T, bf16>) {     // the wgmma route, by d
+    if (d == 64) return static_cast<int>(wg::launch<64>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
+    if (d == 128) return static_cast<int>(wg::launch<128>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
+  }
+  if (b * h > 65535) return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
     case 16: return static_cast<int>(launch<T, 16>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
     case 32: return static_cast<int>(launch<T, 32>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));

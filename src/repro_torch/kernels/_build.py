@@ -3,9 +3,9 @@
 Each ``src/repro_torch/csrc/<name>.cu`` exposes a plain C interface and
 compiles, with one ``nvcc`` per source (all started together), into
 ``build/kernels/lib<name>-<digest>.so`` at the root of the checkout. The
-digest covers the source and the flags, so an edited kernel rebuilds and
-an unchanged one is reused. The first use of a kernel builds it; a failed
-build raises.
+digest covers the source, the shared headers ``csrc/*.cuh`` and the
+flags, so an edited kernel or header rebuilds and an unchanged one is
+reused. The first use of a kernel builds it; a failed build raises.
 """
 from __future__ import annotations
 
@@ -47,9 +47,14 @@ def sources() -> list[str]:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    """Where the library of ``csrc/<name>.cu`` is built: its name carries a
+    digest of the source, of every shared header ``csrc/*.cuh`` (which any
+    source may include) and of the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: list[str] | None = None) -> float:

@@ -4,7 +4,10 @@ The counterparts of ``repro.kernels.stream_fold.stream_fold``'s
 ``stream_fold_pallas`` / ``stream_fold_mac_pallas``. A tensor on the CPU
 goes to the plain version in ``ref.py``; a CUDA tensor launches the kernel
 or raises. ``LAUNCHES`` counts kernel launches, one per call that reached
-the card.
+the card. The deposit-mode fold has two hand-written routes, chosen by
+shape (:func:`fold_route`): a float4 kernel where F % 4 == 0 and every
+buffer is 16-byte aligned (counted as ``fold``), a one-float-per-thread
+kernel otherwise (counted as ``fold_scalar``).
 """
 from __future__ import annotations
 
@@ -17,13 +20,15 @@ from repro_torch.kernels.stream_fold.ref import (
     stream_fold_mac_ref, stream_fold_ref,
 )
 
-LAUNCHES = {"fold": 0, "fold_mac": 0}
+LAUNCHES = {"fold": 0, "fold_scalar": 0, "fold_mac": 0}
 _MAX_SHARED_BYTES = 48 * 1024
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
     "stream_fold_f32": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                         ctypes.c_int, _P],
+    "stream_fold_x4_f32": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
+                           ctypes.c_int, _P],
     "stream_fold_mac_f32": [_P, _P, _P, _P, _P, ctypes.c_longlong,
                             ctypes.c_int, ctypes.c_int, ctypes.c_int,
                             ctypes.c_float, _P],
@@ -65,11 +70,26 @@ def _launch(name: str, counter: str, out: torch.Tensor, *args) -> None:
     LAUNCHES[counter] += 1
 
 
+def fold_route(*ts: torch.Tensor) -> str:
+    """``"vector"`` when the deposit-mode fold over these buffers (x0,
+    deposits, a, out) can run four floats a thread — F, their last
+    dimension, a multiple of 4 and each one 16-byte aligned — else
+    ``"scalar"``."""
+    vector = (ts[0].shape[-1] % 4 == 0
+              and all(t.data_ptr() % 16 == 0 for t in ts))
+    return "vector" if vector else "scalar"
+
+
+_FOLD_ENTRY = {"vector": ("stream_fold_x4_f32", "fold"),
+               "scalar": ("stream_fold_f32", "fold_scalar")}
+
+
 def stream_fold_cuda(x0: torch.Tensor, deposits: torch.Tensor,
                      a: torch.Tensor) -> torch.Tensor:
     """``x ← x·a + deposits[s]`` over all S sub-slots in one launch; bit-exact
     with :func:`~repro_torch.kernels.stream_fold.ref.stream_fold_ref` on
-    the card. x0 [N, F]; deposits [S, N, F]; a [F] → [N, F]."""
+    the card. x0 [N, F]; deposits [S, N, F]; a [F] → [N, F]. The kernel is
+    the one :func:`fold_route` chooses for these buffers."""
     if deposits.dim() != 3:
         raise ValueError(f"deposits must be [S, N, F], got "
                          f"{tuple(deposits.shape)}")
@@ -79,7 +99,8 @@ def stream_fold_cuda(x0: torch.Tensor, deposits: torch.Tensor,
     _check({"x0": x0, "deposits": deposits, "a": a},
            {"x0": (N, F), "deposits": (S, N, F), "a": (F,)})
     out = torch.empty_like(x0)
-    _launch("stream_fold_f32", "fold", out, x0.data_ptr(), deposits.data_ptr(),
+    entry, counter = _FOLD_ENTRY[fold_route(x0, deposits, a, out)]
+    _launch(entry, counter, out, x0.data_ptr(), deposits.data_ptr(),
             a.data_ptr(), out.data_ptr(), N, F, S)
     return out
 

@@ -41,14 +41,46 @@ def cuda_device():
     return resolve_device("cuda")
 
 
+def _misaligned(t):
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4
+    return out
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,N,F", [(1, 4099, 16), (4, 1000, 5)])
-def test_cuda_fold_bit_exact_vs_plain(cuda_device, S, N, F):
-    ts = [t.to(cuda_device) for t in _t(*_fold_inputs(S, S, N, F))]
-    n = sf.LAUNCHES["fold"]
-    got = sf.stream_fold(*ts)
-    assert sf.LAUNCHES["fold"] == n + 1
-    torch.testing.assert_close(got, ref.stream_fold_ref(*ts), rtol=0, atol=0)
+@pytest.mark.parametrize("S,N,F,misaligned,route", [
+    (1, 4099, 16, False, "vector"),
+    (4, 1000, 5, False, "scalar"),
+    (4, 1000, 3, False, "scalar"),        # F % 4 != 0
+    (3, 777, 8, True, "scalar"),          # deposits off the 16-byte grid
+    (9, 513, 16, False, "vector"),        # S > 8: two batches of loads
+    (1, 262144, 16, False, "vector"),     # the serving shape
+])
+def test_cuda_fold_bit_exact_vs_plain(cuda_device, S, N, F, misaligned,
+                                      route):
+    """Each route of the deposit-mode fold bit-exact with the plain fold:
+    the one its shape chooses, counted under its own name, and, where that
+    is the vector route, the scalar one on the same values through a copy
+    of the deposits off the 16-byte grid."""
+    x0, dep, a = [t.to(cuda_device) for t in _t(*_fold_inputs(S, S, N, F))]
+    if misaligned:
+        dep = _misaligned(dep)
+    assert sf.fold_route(x0, dep, a) == route
+    want = ref.stream_fold_ref(x0, dep, a)
+    counter = {"vector": "fold", "scalar": "fold_scalar"}[route]
+    before = dict(sf.LAUNCHES)
+    got = sf.stream_fold(x0, dep, a)
+    assert sf.LAUNCHES == {**before, counter: before[counter] + 1}
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    if route == "vector":
+        off = _misaligned(dep)
+        assert sf.fold_route(x0, off, a) == "scalar"
+        torch.testing.assert_close(sf.stream_fold(x0, off, a), want,
+                                   rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -271,18 +303,25 @@ def _check_gqa(q, k, v, causal, kv_len):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d,causal,sq,skv,kv_len", [
-    (16, True, 64, 64, None),
-    (64, False, 100, 130, None),      # Sq and Skv off the 64-row tile: pad
-    (128, True, 200, 200, None),
-    (128, False, 1, 96, 40),          # decode-like, kv_len masks the tail
-    (32, True, 128, 128, 70),         # causal and kv_len together
+@pytest.mark.parametrize("B,sq,skv,H,d,causal,kv_len", [
+    (2, 64, 64, 3, 16, True, None),
+    (2, 100, 130, 3, 64, False, None),    # Sq and Skv off the tiles: pad
+    (2, 200, 200, 3, 128, True, None),
+    (2, 1, 96, 3, 128, False, 40),        # decode-like, kv_len masks the tail
+    (2, 128, 128, 3, 32, True, 70),       # causal and kv_len together
+    (2, 300, 300, 2, 128, True, None),    # B 2, Sq off the 128-row tile
+    (2, 300, 300, 2, 64, False, None),
+    (2, 130, 260, 2, 128, True, 40),      # kv_len inside the first kv tile
+    (2, 260, 260, 2, 128, False, 128),    # kv_len on a kv tile boundary
+    (2, 260, 260, 2, 64, True, 256),
+    (1, 2048, 2048, 16, 128, True, None),  # the internlm2-1.8b prefill
 ])
-def test_cuda_flash_attention_vs_plain(cuda_device, dtype, d, causal, sq, skv,
-                                       kv_len):
-    """Three heads of two rows, G = 1, in gqa_attention's [B, S, H, d]
-    layout (a row stride of H d, as at serving)."""
-    q, k, v = _qkv(d + sq, [(2, sq, 3, d), (2, skv, 3, d), (2, skv, 3, d)],
+def test_cuda_flash_attention_vs_plain(cuda_device, dtype, B, sq, skv, H, d,
+                                       causal, kv_len):
+    """G = 1, in gqa_attention's [B, S, H, d] layout (a row stride of H d,
+    as at serving); with B = 2 a row or store that strayed into the next
+    batch would show."""
+    q, k, v = _qkv(d + sq, [(B, sq, H, d), (B, skv, H, d), (B, skv, H, d)],
                    dtype, cuda_device)
     _check_gqa(q, k, v, causal, kv_len)
 
@@ -290,10 +329,12 @@ def test_cuda_flash_attention_vs_plain(cuda_device, dtype, d, causal, sq, skv,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,kv_len", [(True, None), (False, 50)])
-def test_cuda_gqa_attention_groups(cuda_device, dtype, causal, kv_len):
-    """G = 2 query heads per kv head, indexed in the kernel."""
-    q, k, v = _qkv(5, [(2, 77, 4, 64), (2, 77, 2, 64), (2, 77, 2, 64)], dtype,
-                   cuda_device)
+@pytest.mark.parametrize("G,d", [(1, 64), (2, 64), (4, 128), (8, 128),
+                                 (2, 32)])
+def test_cuda_gqa_attention_groups(cuda_device, dtype, causal, kv_len, G, d):
+    """G query heads per kv head, indexed in the kernel."""
+    q, k, v = _qkv(5 + G, [(2, 77, 8, d), (2, 77, 8 // G, d),
+                           (2, 77, 8 // G, d)], dtype, cuda_device)
     _check_gqa(q, k, v, causal, kv_len)
 
 

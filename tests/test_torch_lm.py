@@ -6,6 +6,7 @@ own tests run them on the CPU)."""
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -214,6 +215,89 @@ def test_gqa_attention_groups(causal, kv_len):
                                   jnp.asarray(v), causal=causal,
                                   kv_len=kv_len, use_ref=True)
     _close(got, want, 1e-5)
+
+
+def _wgmma_route_emulation(q, k, v, *, causal, kv_len=None, drop_tile=None):
+    """float32 emulation of the order of work of the bf16 wgmma route of
+    csrc/flash_attention.cu, on q [S, H, d] and k/v [Skv, H, d] (kv head
+    already repeated to each query head): blocks of 128 query rows as two
+    warpgroups of 64, kv tiles of 128 keys up to the causal limit of the
+    block's last row, the mask applied only on tiles that cross the
+    diagonal or kv_len, p = 2^(s scale log2(e) - m) with m in that log2
+    domain, P rounded to bf16 before PV while l sums the unrounded p, out =
+    acc / max(l, 1e-20) rounded to bf16. ``drop_tile`` skips one kv tile."""
+    S, H, d = q.shape
+    Skv = k.shape[0]
+    kv_len = Skv if kv_len is None else kv_len
+    bq = bk = 128
+    neg = -1e30
+    scale_log2 = torch.tensor(math.log2(math.e) / math.sqrt(d),
+                              dtype=torch.float32)
+    qh, kh, vh = (t.transpose(0, 1).float() for t in (q, k, v))
+    out = torch.zeros((H, S, d))
+    for q0 in range(0, S, bq):
+        kv_hi = min(kv_len, min(q0 + bq, S)) if causal else kv_len
+        for r_min in (q0, q0 + 64):                 # the two warpgroups
+            rows = torch.arange(r_min, r_min + 64)
+            qr = qh[:, r_min:r_min + 64]
+            if qr.shape[1] == 0:
+                continue
+            rows = rows[:qr.shape[1]]
+            m = torch.full((H, len(rows)), neg)
+            l = torch.zeros((H, len(rows)))
+            acc = torch.zeros((H, len(rows), d))
+            for t, k0 in enumerate(range(0, kv_hi, bk)):
+                if t == drop_tile:
+                    continue
+                keys = torch.arange(k0, k0 + bk)
+                kt = torch.zeros((H, bk, d))
+                vt = torch.zeros((H, bk, d))
+                kt[:, :min(bk, Skv - k0)] = kh[:, k0:k0 + bk]
+                vt[:, :min(bk, Skv - k0)] = vh[:, k0:k0 + bk]
+                s = qr @ kt.transpose(1, 2)
+                masked = (causal and k0 + bk - 1 > r_min) or k0 + bk > kv_len
+                if masked:
+                    bad = keys[None, :] >= kv_len
+                    if causal:
+                        bad = bad | (keys[None, :] > rows[:, None])
+                    s = s.masked_fill(bad, neg)
+                m_new = torch.maximum(m, s.amax(-1) * scale_log2)
+                corr = torch.exp2(m - m_new)
+                p = torch.exp2(s * scale_log2 - m_new[..., None])
+                if masked:
+                    p = p.masked_fill(bad, 0.0)
+                l = l * corr + p.sum(-1)
+                acc = acc * corr[..., None] + p.bfloat16().float() @ vt
+                m = m_new
+            out[:, rows] = acc / l.clamp_min(1e-20)[..., None]
+    return out.bfloat16().float()
+
+
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("causal,kv_len", [(True, None), (False, 700)])
+def test_wgmma_route_arithmetic_within_the_card_limit(G, causal, kv_len):
+    """The bf16 wgmma route's arithmetic (see the emulation) at S 1024, H 2,
+    d 128 against attention_ref on the same bf16 values, per element within
+    chip_smoke.fa_limit's 2^-8 (|o| + attention of |v|) + 1e-5; with one kv
+    tile dropped the same check fails, so the limit sees a missing tile."""
+    S, H, d = 1024, 2, 128
+    rng = np.random.default_rng(G)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .bfloat16().float()
+               for shape in ((S, H, d), (S, H // G, d), (S, H // G, d)))
+    k, v = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    bh = [t.transpose(0, 1) for t in (q, k, v)]
+    want = attention_ref(*bh, causal=causal, kv_len=kv_len)
+    abs_attn = attention_ref(bh[0], bh[1], bh[2].abs(), causal=causal,
+                             kv_len=kv_len)
+    u = 2.0 ** -8
+    limit = u * want.abs() + u * (1 + 2.0 ** -6) * abs_attn + 1e-5
+    got = _wgmma_route_emulation(q, k, v, causal=causal, kv_len=kv_len)
+    share = float(((got - want).abs() / limit).max())
+    assert share <= 1.0, f"{share:.3g} of the limit"
+    dropped = _wgmma_route_emulation(q, k, v, causal=causal, kv_len=kv_len,
+                                     drop_tile=1)
+    assert float(((dropped - want).abs() / limit).max()) > 4.0
 
 
 # ---------------------------------------------------------------------------

@@ -53,6 +53,29 @@ def test_chip_smoke_imports_neither_jax_nor_the_reference():
             assert words[1].split(".")[0] not in ("jax", "repro"), line
 
 
+def test_kernel_library_digest_covers_shared_headers(tmp_path, monkeypatch):
+    """An edit to a csrc/*.cuh header, as to the source itself, names a new
+    library, so a stale build is never reused; an unrelated file does not."""
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "hopper.cuh"\n')
+    (tmp_path / "hopper.cuh").write_text("// v1\n")
+    first = _build.lib_path("k")
+    assert _build.lib_path("k") == first
+    assert first.name.startswith("libk-") and first.suffix == ".so"
+    (tmp_path / "notes.txt").write_text("not a header")
+    assert _build.lib_path("k") == first
+    (tmp_path / "hopper.cuh").write_text("// v2\n")
+    second = _build.lib_path("k")
+    assert second != first
+    (tmp_path / "extra.cuh").write_text("// new header\n")
+    assert _build.lib_path("k") not in (first, second)
+    (tmp_path / "extra.cuh").unlink()
+    (tmp_path / "k.cu").write_text('#include "hopper.cuh"\n// edited\n')
+    assert _build.lib_path("k") not in (first, second)
+    assert _build.sources() == ["k"]
+
+
 def _small_dep(device="cpu", seed=0):
     cfg, _ = p2m_dvs.reduced(hw=8, channels=(4, 8), fc=16)
     return deploy.fresh_deployment(cfg, seed=seed, device=device)
