@@ -28,9 +28,11 @@ no ``ok`` line):
                 bfloat16 held per element, see ``fa_limit``), without the
                 mask and at d 64 and 32 (bf16 runs both its kernels, see
                 ``FA_CASES``), and the SSD kernel at the mamba2-780m
-                prefill (x [1, 2048, 48, 64], n 128, g 1, chunk 128), each
+                prefill (x [1, 2048, 48, 64], n 128, g 1, chunk 128, with
+                one call's device time split over its three passes), each
                 in float32 and bfloat16 and on padded shapes (K5: Sq 100,
-                G 2, with B 1 and B 2, d 128, 32 and 16);
+                G 2, with B 1 and B 2, d 128, 32 and 16; K6: s 200 with
+                b 1 g 1 and b 2 g 2);
   4. slice    — the paper's full-width configuration (configs/p2m_dvs.CONFIG)
                 as a fresh seeded deployment (backbone gain doubled so its
                 head spikes, see ``awake``), saved and reloaded through the
@@ -445,17 +447,61 @@ def ssd_work(b, s, h, p, g, n, esize, chunk=128) -> tuple[int, int]:
     return n_bytes, 2 * fmas * b * h
 
 
+# K6's cases: (b, s, h, p, g, n); the first is the mamba2-780m prefill and
+# is timed, the others put s off the 128-step chunk, with b 2 and g 2 in
+# the last (a row past s, or a head's group, read wrong lands in another
+# batch or group)
+SSD_CASES = (
+    (1, LM_PROMPT, 48, 64, 1, 128),
+    (1, 200, 48, 64, 1, 128),
+    (2, 200, 48, 64, 2, 128),
+)
+
+
+def device_split(torch, fn, kernels: int, calls: int = 5, tries: int = 3
+                 ) -> list[tuple[str, float]]:
+    """(kernel name, device ms per launch) of each of the ``kernels``
+    kernels that ``fn`` launches, from torch.profiler's device rows over
+    ``calls`` calls (each kernel's total over its own count). A trace of
+    such short calls sometimes holds no device rows, or not all of them,
+    so it is taken again, up to ``tries`` times; what the last one held is
+    returned."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out = []
+    for _ in range(tries):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = []
+        for e in prof.key_averages():
+            if (e.device_type == DeviceType.CUDA
+                    and e.self_device_time_total > 0):
+                m = re.search(r"::(\w+)", e.key)
+                out.append((m.group(1) if m else e.key[:40],
+                            e.self_device_time_total / e.count / 1e3))
+        if len(out) >= kernels:
+            break
+    return out
+
+
 def phase_ssd(torch, sd, ssd_ref, flush) -> dict:
-    """K6 against its plain version at the mamba2-780m prefill (x [1, 2048,
-    48, 64], n 128, g 1, chunk 128) and on a padded shape (s 200), in
-    float32 and bfloat16: y and state within relative error 1e-3 of the
-    largest magnitude (a bfloat16 y also within one bfloat16 step of its
-    own value, the rounding of the output)."""
+    """K6 against its plain version on each of ``SSD_CASES`` (the
+    mamba2-780m prefill, x [1, 2048, 48, 64], n 128, g 1, chunk 128, and
+    padded shapes, s 200, with b 1 g 1 and b 2 g 2), in float32 and
+    bfloat16: y and state within relative error 1e-3 of the largest
+    magnitude (a bfloat16 y also within one bfloat16 step of its own value,
+    the rounding of the output). The prefill shape is timed, and one call's
+    device time is split over its three passes (torch.profiler)."""
     import torch.nn.functional as F
     gen = torch.Generator().manual_seed(4)
     rows = {}
-    for b, s, h, p, g, n in ((1, LM_PROMPT, 48, 64, 1, 128),
-                             (1, 200, 48, 64, 1, 128)):
+    for b, s, h, p, g, n in SSD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
             x = torch.randn((b, s, h, p), generator=gen).to("cuda", dtype)
@@ -473,16 +519,23 @@ def phase_ssd(torch, sd, ssd_ref, flush) -> dict:
             st_err = (st - st_r).abs().max().item() / st_r.abs().max().item()
             if ((dy > SSD_RTOL * y_top + ulp * y_r.float().abs()).any()
                     or not st_err <= SSD_RTOL):
-                fail(f"ssd [{b}, {s}, {h}, {p}] n {n} {name}: y max |diff| "
-                     f"{dy.max().item()} (max |y| {y_top}), state relative "
-                     f"error {st_err}")
+                fail(f"ssd [{b}, {s}, {h}, {p}] g {g} n {n} {name}: y max "
+                     f"|diff| {dy.max().item()} (max |y| {y_top}), state "
+                     f"relative error {st_err}")
             err = dy.max().item()
+            share = (dy / (SSD_RTOL * y_top + ulp * y_r.float().abs())
+                     ).max().item()
             if s != LM_PROMPT:
-                print(f"[kernels] ssd              [{b}, {s}, {h}, {p}] n {n} "
-                      f"{name}: y max|diff| {err:.3g}, state rel err "
+                print(f"[kernels] ssd              [{b}, {s}, {h}, {p}] g {g} "
+                      f"n {n} {name}: y max|diff| {err:.3g}, at most "
+                      f"{share:.3g} of the per-element limit, state rel err "
                       f"{st_err:.3g} (pad case)")
                 continue
-            bb, by = bound_ms(*ssd_work(b, s, h, p, g, n, x.element_size()))
+            # the bf16 products belong on the tensor cores, float32 on the
+            # CUDA cores
+            bb, by = bound_ms(*ssd_work(b, s, h, p, g, n, x.element_size()),
+                              BF16_TC_FLOPS if dtype == torch.bfloat16
+                              else FP32_FLOPS)
             row = {"name": "ssd", "max_abs_err": err,
                    "ms": time_ms(lambda: sd.ssd_cuda(*args, chunk=128), torch,
                                  flush=flush),
@@ -492,7 +545,19 @@ def phase_ssd(torch, sd, ssd_ref, flush) -> dict:
             rows[name] = row
             print_row(row, f"[{b}, {s}, {h}, {p}] n={n} {name}")
             print(f"[kernels] ssd              state rel err {st_err:.3g}, y "
-                  f"max |y| {y_top:.3g}")
+                  f"max |y| {y_top:.3g}, at most {share:.3g} of the "
+                  f"per-element limit")
+            split = device_split(torch,
+                                 lambda: sd.ssd_cuda(*args, chunk=128), 3)
+            if len(split) < 3:
+                print(f"[kernels] ssd              {name} one call by pass: "
+                      f"not measured (the trace held {len(split)} of the 3 "
+                      f"kernels)")
+            else:
+                print(f"[kernels] ssd              {name} one call by pass "
+                      f"(torch.profiler, device ms a launch, 5 calls): "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in split)
+                      + f"; sum {sum(v for _, v in split):.4f}")
     return rows
 
 
@@ -566,7 +631,7 @@ def phase_lm(torch, arch: str, counters) -> dict:
           f"(median), launches {launches}")
 
     prompt = reqs[0].prompt.to("cuda")[None]
-    profile_eval(torch, lm.prefill, (params, prompt, scfg, max_len),
+    profile_eval(torch, lm.prefill, (params, prompt, scfg, max_len), top=8,
                  tag="lm", what=f"{arch} prefill of {LM_PROMPT} tokens")
     tokens = torch.zeros((LM_BATCH, 1), dtype=torch.long, device="cuda")
     profile_eval(torch, lm.decode_step,

@@ -5,7 +5,11 @@ kernel launches, one per call that reached the card.
 
 The kernel reads x ``[b, s, h, p]``, dt ``[b, s, h]`` and B/C
 ``[b, s, g, n]`` where they lie (no head-major copies, grouped B/C never
-expanded) and pads the sequence to the chunk by bounds checks.
+expanded) and pads the sequence to the chunk by zero-filled copies. One
+call is three launches (each chunk's own state contribution, the state
+entering each chunk, the chunk's output) through float32 scratch that the
+wrapper allocates: ``[b, ceil(s / chunk), h, p, n]`` and ``[b, ceil(s /
+chunk), h]``.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ MAX_STATE = 128
 
 def _fn(name: str):
     fn = getattr(_build.load("ssd"), name)
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -34,7 +38,7 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """x [b,s,h,p] float32/bfloat16, dt [b,s,h] and A [h] float32, B/C
     [b,s,g,n] of x's type, on CUDA → (y [b,s,h,p] of x's type, state
-    [b,h,p,n] float32), in one launch."""
+    [b,h,p,n] float32), in three launches counted as one call."""
     args = {"x": x, "dt": dt, "A": A, "B": B, "C": C}
     for name, t in args.items():
         if t.device != x.device or t.device.type != "cuda":
@@ -63,11 +67,16 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"{chunk}, n {n}")
     y = torch.empty_like(x)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    n_chunks = -(-s // chunk)
+    u = torch.empty((b, n_chunks, h, p, n), dtype=torch.float32,
+                    device=x.device)
+    dec = torch.empty((b, n_chunks, h), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _fn(_ENTRY[x.dtype])(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                                   B.data_ptr(), C.data_ptr(), y.data_ptr(),
-                                  state.data_ptr(), b, s, h, p, g, n, chunk,
+                                  state.data_ptr(), u.data_ptr(),
+                                  dec.data_ptr(), b, s, h, p, g, n, chunk,
                                   stream)
     if rc:
         raise RuntimeError(f"{_ENTRY[x.dtype]} launch failed with cudaError "

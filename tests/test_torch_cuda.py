@@ -44,8 +44,9 @@ def cuda_device():
 def _misaligned(t):
     """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
     boundary."""
-    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-    out = buf[1:].view(t.shape)
+    k = 4 // t.element_size()
+    buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+    out = buf[k:].view(t.shape)
     out.copy_(t)
     assert out.data_ptr() % 16 == 4
     return out
@@ -382,16 +383,34 @@ def _ssd_args(seed, b, s, h, p, g, n, dtype, device):
     (1, 200, 4, 64, 1, 128, 128, torch.float32),  # pad, the mamba2 widths
     (2, 256, 6, 64, 2, 128, 128, torch.bfloat16),
     (1, 130, 3, 16, 3, 32, 64, torch.bfloat16),
+    # the chunk-parallel passes: one chunk (no state passed on), s a
+    # multiple of the chunk, chunk 16 over 60 chunks, n 4 and 5 (zero-
+    # padded to 16 in shared memory, B/C rows off the 16-byte grid), b 2
+    # with g 2 and h 6 at the mamba2 widths with s off the chunk
+    (1, 100, 4, 64, 1, 128, 128, torch.bfloat16),
+    (1, 100, 4, 64, 1, 128, 128, torch.float32),
+    (1, 384, 4, 64, 1, 128, 128, torch.bfloat16),
+    (1, 960, 2, 32, 1, 64, 16, torch.bfloat16),
+    (1, 960, 2, 32, 1, 64, 16, torch.float32),
+    (1, 90, 2, 16, 1, 4, 32, torch.bfloat16),
+    (1, 70, 2, 32, 2, 5, 16, torch.bfloat16),
+    (2, 300, 6, 64, 2, 128, 128, torch.bfloat16),
+    (2, 300, 6, 64, 2, 128, 128, torch.float32),
 ])
 def test_cuda_ssd_vs_plain(cuda_device, b, s, h, p, g, n, chunk, dtype):
     """y and state within relative error 1e-3 (of the largest magnitude) of
     the plain float32 recurrence on the same inputs; a bfloat16 y may also
     sit one bfloat16 step (2^-8 relative) away, the rounding of its
     output."""
+    args = _ssd_args(s + h + n, b, s, h, p, g, n, dtype, cuda_device)
+    _check_ssd(args, chunk)
+
+
+def _check_ssd(args, chunk):
     from repro_torch.kernels.ssd import ssd as ssd_mod
     from repro_torch.kernels.ssd.ops import ssd
     from repro_torch.kernels.ssd.ref import ssd_ref
-    args = _ssd_args(s + h + n, b, s, h, p, g, n, dtype, cuda_device)
+    dtype = args[0].dtype
     k = ssd_mod.LAUNCHES["ssd"]
     y, st = ssd(*args, chunk=chunk)
     assert ssd_mod.LAUNCHES["ssd"] == k + 1
@@ -403,6 +422,16 @@ def test_cuda_ssd_vs_plain(cuda_device, b, s, h, p, g, n, chunk, dtype):
                                atol=1e-3 * float(y_r.float().abs().max()))
     torch.testing.assert_close(st, st_r, rtol=0,
                                atol=1e-3 * float(st_r.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssd_unaligned_inputs(cuda_device, dtype):
+    """x, B and C that start off the 16-byte grid take the kernel's
+    element-wise staging and give the same result."""
+    x, dt, A, B, C = _ssd_args(7, 1, 200, 4, 64, 1, 128, dtype, cuda_device)
+    x, B, C = (_misaligned(t) for t in (x, B, C))
+    _check_ssd((x, dt, A, B, C), 128)
 
 
 @pytest.mark.cuda

@@ -334,6 +334,103 @@ def test_ssd_plain_vs_reference(b, s, h, p, g, n, chunk):
     assert torch.equal(ssd_ref(*map(_t, args))[0], y)
 
 
+def _split(v, terms=2):
+    """A float32 operand as the kernel hands it to bf16 products: the sum
+    of ``terms`` bf16 values, each the rounding of what the earlier ones
+    left (1: one bf16 rounding)."""
+    out, rest = torch.zeros_like(v), v
+    for _ in range(terms):
+        part = rest.bfloat16().float()
+        out, rest = out + part, rest - part
+    return out
+
+
+def _ssd_chunked_emulation(x, dt, A, B, C, chunk, *, single=(),
+                           drop_state=None):
+    """float32 emulation of the bf16 route of csrc/ssd.cu on x [s, h, p],
+    dt [s, h], A [h] and B/C [s, n] (one group), in its three passes:
+    (1) per chunk a_cs, the contribution U = (x * w)^T B with x * w split
+    into hi + lo and the decay exp(a_cs[L-1]); (2) the state entering each
+    chunk, walking the chunks; (3) y = W x + exp(a_cs) (C state^T) with W
+    split into hi + mid + lo and the incoming state into hi + lo, y rounded
+    to bf16. ``single`` names operands rounded once instead ("xw", "w",
+    "state"); ``drop_state`` is a chunk whose incoming state is taken as
+    zero."""
+    s, h, p = x.shape
+    n = B.shape[1]
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    xp, dtp, Bp, Cp = (torch.cat([t, t.new_zeros((pad,) + t.shape[1:])])
+                       for t in (x, dt, B, C))
+    xc = xp.view(nc, chunk, h, p)
+    Bc, Cc = Bp.view(nc, chunk, n), Cp.view(nc, chunk, n)
+    acs = (dtp * A).view(nc, chunk, h).cumsum(1)            # [nc, L, h]
+    dtc = dtp.view(nc, chunk, h)
+    # pass 1
+    w = dtc * torch.exp(acs[:, -1:] - acs)                  # [nc, L, h]
+    xw = _split(xc * w[..., None], 1 if "xw" in single else 2)
+    U = torch.einsum("clhp,cln->chpn", xw, Bc)              # [nc, h, p, n]
+    dec = torch.exp(acs[:, -1])                             # [nc, h]
+    # pass 2
+    run = torch.zeros((h, p, n))
+    s_in = torch.empty_like(U)
+    for c in range(nc):
+        s_in[c] = run
+        run = dec[c][:, None, None] * run + U[c]
+    if drop_state is not None:
+        s_in[drop_state] = 0.0
+    # pass 3
+    G = torch.einsum("cin,cjn->cij", Cc, Bc)                # [nc, L, L]
+    seg = acs[:, :, None, :] - acs[:, None, :, :]           # [nc, i, j, h]
+    mask = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))
+    decay = torch.where(mask[None, :, :, None], torch.exp(seg),
+                        torch.zeros(()))
+    W = _split(G[..., None] * decay * dtc[:, None, :, :],
+               1 if "w" in single else 3)
+    y = torch.einsum("cijh,cjhp->cihp", W, xc)
+    y_inter = torch.einsum("cin,chpn->cihp", Cc,
+                           _split(s_in, 1 if "state" in single else 2))
+    y = y + torch.exp(acs)[..., None] * y_inter
+    return y.reshape(nc * chunk, h, p)[:s].bfloat16().float(), run
+
+
+@pytest.mark.parametrize("variant", ["kernel", "dropped_state",
+                                     "single_rounding"])
+def test_ssd_chunked_route_within_the_card_limit(variant):
+    """The bf16 route's arithmetic (see the emulation) at s 1024, 4 heads,
+    p 64, n 128, chunk 128, on chip_smoke.py's input distribution rounded to
+    bf16, against ssd_ref: y within 1e-3 of max |y| plus 2^-8 |y| per
+    element and the final state within relative error 1e-3 (chip_smoke's
+    SSD_RTOL and per-element limit). Negative controls: with one chunk's
+    incoming state dropped y fails the same limit; with the state and
+    x * dt * decay_end (the kernel weights x, not B) rounded once to bf16
+    the state's relative error exceeds 1e-3."""
+    s, h, p, n, chunk = 1024, 4, 64, 128, 128
+    rng = np.random.default_rng(15)
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).bfloat16().float()  # noqa: E731
+    x = bf(rng.standard_normal((s, h, p)))
+    dt = torch.from_numpy(np.log1p(np.exp(rng.standard_normal((s, h))))
+                          .astype(np.float32))
+    A = torch.from_numpy((-np.exp(rng.standard_normal(h) * 0.3))
+                         .astype(np.float32))
+    B, C = bf(rng.standard_normal((s, n))), bf(rng.standard_normal((s, n)))
+    y_r, st_r = ssd_ref(x[None], dt[None], A, B[None, :, None],
+                        C[None, :, None])
+    y_r, st_r = y_r[0], st_r[0]
+    kw = {"dropped_state": {"drop_state": 3},
+          "single_rounding": {"single": ("state", "xw")}}.get(variant, {})
+    y, st = _ssd_chunked_emulation(x, dt, A, B, C, chunk, **kw)
+    limit = 1e-3 * y_r.abs().max() + 2.0 ** -8 * y_r.abs()
+    y_share = float(((y - y_r).abs() / limit).max())
+    st_err = float((st - st_r).abs().max() / st_r.abs().max())
+    if variant == "kernel":
+        assert y_share <= 1.0 and st_err <= 1e-3, (y_share, st_err)
+    elif variant == "dropped_state":
+        assert y_share > 1.0
+    else:
+        assert st_err > 1e-3
+
+
 def test_ssm_block_full_and_decode():
     """_ssm_block_full (through the SSD op) and one ssm_block_decode step
     against the reference's, with the same weights."""
