@@ -18,7 +18,13 @@ no ``ok`` line):
                 the serving shapes (N = 16·128·128, F = 16, K = 18;
                 S ∈ {1, 4}; the deposit fold's vector route, and its scalar
                 route on the same values with the deposits copied off the
-                16-byte grid); the P²M conv kernel on the physics batch (4
+                16-byte grid; the MAC fold on the event frames [16, S, 128,
+                128, 2], its TMA route and, with x0 off the 16-byte grid,
+                its cp.async route, and one fold_chunk(mode="mac") call's
+                device time); the P²M conv kernel's quotient against
+                __fdiv_rn over every float32 of magnitude ≤ 1, and both its
+                routes (tensor cores, and FMA on events off the 16-byte
+                grid) on the physics batch (4
                 synthetic-gesture samples × 4000 ms at 128×128, drawn on the
                 host first) for the three paper circuits and for one; the
                 LIF kernel in float32 and bfloat16 at the backbone's largest
@@ -65,6 +71,10 @@ no ``ok`` line):
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --measure-tree ROOT`` runs none of this: it times
+K1 and the MAC-mode fold_chunk as the checkout at ROOT has them (see
+``measure_tree``), to compare two commits in one call.
 """
 from __future__ import annotations
 
@@ -191,29 +201,55 @@ def phase_kernels(torch, sf, ref, flush, write_flush) -> dict:
                               if S == 1 else None)}
         rows[("fold", S)] = row
 
-        patches = torch.poisson(torch.full((S, N, K), 0.3), generator=gen
-                                ).to(dev)
-        patches += torch.rand((S, N, K), generator=gen).to(dev) * 0.01
+        # K3 on the chunk's event frames [B, S, H, W, Cin], as fold_chunk
+        # hands them over (counts plus a non-integer part: the dot
+        # products are inexact, so the 1e-5 limit is what holds)
+        frames = torch.poisson(torch.full((N_LANES, S, HW, HW, 2), 0.3),
+                               generator=gen).to(dev)
+        frames += torch.rand(frames.shape, generator=gen).to(dev) * 0.01
         w = (torch.round(torch.rand((K, F), generator=gen) * 16 - 8) / 8
              ).to(dev)
-        got = sf.stream_fold_mac_cuda(x0, patches, w, a, dv_unit=0.01)
-        want = ref.stream_fold_mac_ref(x0, patches, w, a, dv_unit=0.01)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        if not err <= 1e-5:
-            fail(f"stream_fold_mac S={S} max |diff| {err} > 1e-5")
-        b, by = bound_ms((S * K + 2 * F) * N * 4 + K * F * 4 + F * 4,
+        mac = dict(stride=1, dv_unit=0.01)
+        # x0 off the 16-byte grid takes the cp.async route
+        x0_off = misaligned(torch, x0)
+        for x, r in ((x0, "tma"), (x0_off, "cp")):
+            if sf.mac_route(x, frames, w) != r:
+                fail(f"stream_fold_mac S={S} at the serving shape does not "
+                     f"take the {r} route")
+        want = ref.stream_fold_mac_frames_ref(x0, frames, w, a, **mac)
+        for x, r in ((x0_off, "cp"), (x0, "tma")):
+            got = sf.stream_fold_mac_cuda(x, frames, w, a, **mac)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            if not err <= 1e-5:
+                fail(f"stream_fold_mac S={S} {r} route: max |diff| {err} > "
+                     f"1e-5")
+        # the frames are read once: (B S H W Cin + 2 N F) floats, w and a
+        b, by = bound_ms((frames.numel() + 2 * N * F) * 4 + K * F * 4 + F * 4,
                          S * N * F * (2 * K + 3))
         row = {"name": "stream_fold_mac", "S": S, "max_abs_err": err,
                "ms": time_ms(lambda: sf.stream_fold_mac_cuda(
-                   x0, patches, w, a, dv_unit=0.01), torch, flush=flush),
-               "plain_ms": time_ms(lambda: ref.stream_fold_mac_ref(
-                   x0, patches, w, a, dv_unit=0.01), torch, flush=flush),
+                   x0, frames, w, a, **mac), torch, flush=flush),
+               "cp_ms": time_ms(lambda: sf.stream_fold_mac_cuda(
+                   x0_off, frames, w, a, **mac), torch, flush=flush),
+               "plain_ms": time_ms(lambda: ref.stream_fold_mac_frames_ref(
+                   x0, frames, w, a, **mac), torch, flush=flush),
                "bound_ms": b, "bound_by": by, "library_ms": None}
         rows[("fold_mac", S)] = row
+        fc = fold_chunk_device_ms(torch, S)
+        print(f"[kernels] fold_chunk(mode=\"mac\") S={S} at the serving shape,"
+              f" one call's device time (torch.profiler, 5 calls): "
+              + (", ".join(f"{k} {v:.4f}" for k, v in fc)
+                 + f"; sum {sum(v for _, v in fc):.4f} ms" if fc
+                 else "not measured (no device rows in the trace)"))
     for row in rows.values():
         print_row(row, f"S={row['S']} N={N} F={F}"
                   f"{' K=%d' % K if row['name'].endswith('mac') else ''}")
+        if "cp_ms" in row:
+            print(f"[kernels] stream_fold_mac  S={row['S']}: TMA route "
+                  f"{row['ms']:.4f} ms, cp.async route {row['cp_ms']:.4f} ms "
+                  f"on the same values (x0 off the 16-byte grid), both "
+                  f"within 1e-5")
         if "scalar_ms" in row:
             print(f"[kernels] stream_fold      S={row['S']}: vector route "
                   f"{row['ms']:.4f} ms, scalar route {row['scalar_ms']:.4f} "
@@ -280,15 +316,37 @@ def phase_p2m_conv(torch, ops, pc, events, params, p2m_cfg, circuits,
     """K1 on the physics batch, for the three paper circuits in one launch
     and for the config's own circuit alone (the eval's shape)."""
     B, T, n_sub, H, W, Cin = events.shape
+    half_swing = p2m_cfg.analog.vdd / 2.0
+    t0 = time.perf_counter()
+    bad = pc.quotient_check(half_swing)
+    print(f"[kernels] p2m_conv         quotient v / {half_swing:g} (Markstein's "
+          f"step, __fdiv_rn below |v| = 2^-100) against __fdiv_rn over "
+          f"every float32 with |v| <= 1 (2,130,706,434 values): {bad} "
+          f"mismatches, {time.perf_counter() - t0:.2f} s")
+    if bad:
+        fail(f"p2m_conv's quotient differs from __fdiv_rn for {bad} values")
     rows = {}
+    # the same events off the 16-byte grid take the FMA route
+    events_off = misaligned(torch, events)
     for lcs in (tuple(circuits), (p2m_cfg.leak,)):
         w2, v_inf, decay, theta, consts = ops._prepare(params, p2m_cfg, lcs)
         args = (events, w2, v_inf, decay, theta, params["pv_gain"],
                 params["pv_offset"])
+        args_off = (events_off,) + args[1:]
         n_cfg, (K, F) = len(lcs), w2.shape
-        err = check_p2m_conv(torch, pc.p2m_conv_cuda(*args, **consts),
-                             ops.p2m_conv_events_ref(*args, **consts),
-                             theta, f"p2m_conv n_cfg={n_cfg}")
+        for a, r in ((args, "mma"), (args_off, "fma")):
+            if pc.conv_route(a[0], w2, p2m_cfg.kernel_size) != r:
+                fail(f"p2m_conv n_cfg={n_cfg} on the physics batch does not "
+                     f"take the {r} route")
+        want = ops.p2m_conv_events_ref(*args, **consts)
+        for a, r in ((args, "mma"), (args_off, "fma")):
+            err = check_p2m_conv(torch, pc.p2m_conv_cuda(*a, **consts), want,
+                                 theta, f"p2m_conv n_cfg={n_cfg} {r} route")
+            if err:
+                fail(f"p2m_conv n_cfg={n_cfg} {r} route is not bit-exact on "
+                     f"event counts (max |v_pre diff| {err})")
+            torch.cuda.empty_cache()
+        del want
         torch.cuda.empty_cache()
         ho, wo = -(-H // p2m_cfg.stride), -(-W // p2m_cfg.stride)
         sites = B * T * ho * wo * F
@@ -300,15 +358,23 @@ def phase_p2m_conv(torch, ops, pc, events, params, p2m_cfg, circuits,
         n_flops = sites * (n_sub * (2 * K + 1 + 13 * n_cfg) + 2 * n_cfg)
         b, by = bound_ms(n_bytes, n_flops)
         rows[n_cfg] = {
-            "name": "p2m_conv", "n_cfg": n_cfg, "max_abs_err": err,
+            "name": "p2m_conv", "n_cfg": n_cfg, "max_abs_err": 0.0,
             "ms": time_ms(lambda: pc.p2m_conv_cuda(*args, **consts), torch,
                           flush=flush),
+            "fma_ms": time_ms(lambda: pc.p2m_conv_cuda(*args_off, **consts),
+                              torch, flush=flush),
             "plain_ms": time_ms(lambda: ops.p2m_conv_events_ref(
                 *args, **consts), torch, flush=flush),
             "bound_ms": b, "bound_by": by, "library_ms": None}
         torch.cuda.empty_cache()
         print_row(rows[n_cfg], f"n_cfg={n_cfg} B={B} T={T} n_sub={n_sub} "
                                f"{H}x{W}x{Cin} F={F}")
+        print(f"[kernels] p2m_conv         n_cfg={n_cfg}: tensor-core route "
+              f"{rows[n_cfg]['ms']:.4f} ms, FMA route {rows[n_cfg]['fma_ms']:.4f}"
+              f" ms on the same values (events off the 16-byte grid), both "
+              f"bit-exact")
+    del events_off
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -488,6 +554,23 @@ def device_split(torch, fn, kernels: int, calls: int = 5, tries: int = 3
         if len(out) >= kernels:
             break
     return out
+
+
+def fold_chunk_device_ms(torch, S: int) -> list[tuple[str, float]]:
+    """(kernel name, device ms) of each kernel one ``fold_chunk(mode="mac")``
+    call runs at the serving shape (16 lanes, 128x128, Cin 2, F 16, S
+    sub-slots), from torch.profiler over 5 calls: the MAC kernel and
+    whatever the tree's fold_chunk runs before it."""
+    from repro_torch.kernels.stream_fold import ops
+    gen = torch.Generator().manual_seed(7)
+    x = (torch.randn((N_LANES, HW, HW, F), generator=gen) * 0.05).cuda()
+    frames = torch.poisson(torch.full((N_LANES, S, HW, HW, 2), 0.3),
+                           generator=gen).cuda()
+    w_q = (torch.round(torch.rand((3, 3, 2, F), generator=gen) * 16 - 8) / 8
+           ).cuda()
+    a = torch.exp(-torch.rand(F, generator=gen) * 0.01).cuda()
+    return device_split(torch, lambda: ops.fold_chunk(
+        x, frames, w_q, a, stride=1, dv_unit=0.01, mode="mac"), 1)
 
 
 def phase_ssd(torch, sd, ssd_ref, flush) -> dict:
@@ -882,10 +965,10 @@ def phase_physics(torch, cfg, params, state, events, labels, counters
           f"snn.lif_over_time, {float(got.sum()):.0f} spikes")
     torch.cuda.synchronize()
     launches = {"p2m_conv": counters[0]["p2m_conv"], "lif": counters[1]["lif"]}
-    # three kernel-mode evals, the profiled one and the stacked launch; one
-    # LIF op call; no fold
+    # three kernel-mode evals, the profiled one and the stacked launch, all
+    # on the tensor-core route; one LIF op call; no fold
     if (launches != {"p2m_conv": len(circuits) + 2, "lif": 1}
-            or any(counters[2].values())):
+            or counters[0]["p2m_conv_fma"] or any(counters[2].values())):
         fail(f"physics launches {launches}, folds {counters[2]}: expected "
              f"{len(circuits) + 2} p2m_conv, 1 lif and no fold")
     return launches
@@ -945,7 +1028,49 @@ def phase_physics_parity(torch) -> float:
                         "physics reduced() cuda vs cpu")
 
 
+def measure_tree(torch) -> None:
+    """``--measure-tree ROOT``: K1 and the MAC-mode fold_chunk as the
+    checkout at ROOT has them (its src/ first on the path, its kernels
+    built into ROOT/build), so two commits are timed on one card in one
+    call: K1 on the physics batch for the three paper circuits and for one
+    (CUDA events, as phase_p2m_conv), and one fold_chunk(mode="mac") call's
+    device time at S 1 and 4 (torch.profiler)."""
+    from repro_torch.configs import p2m_dvs
+    from repro_torch.core import codesign, leakage
+    from repro_torch.data import events as ev_mod
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.p2m_conv import ops, p2m_conv as pc
+    from repro_torch.kernels.backend import resolve_device
+    from repro_torch.stream import deploy
+    resolve_device("cuda")
+    _build.build(["p2m_conv", "stream_fold"])
+    cfg = p2m_dvs.CONFIG
+    ev, _ = ev_mod.sample_batch(torch.Generator().manual_seed(0),
+                                p2m_dvs.DATA, PHYS_B, cfg.p2m.t_intg_ms,
+                                cfg.p2m.n_sub)
+    ev = ev.to("cuda")
+    params, _ = codesign.model_init(torch.Generator().manual_seed(0), cfg)
+    p2m = deploy.tree_to(params, torch.device("cuda"))["p2m"]
+    flush, _ = l2_flushers(torch)
+    tree = SRC.parent.name
+    for lcs in (tuple(leakage.paper_circuits()), (cfg.p2m.leak,)):
+        w2, v_inf, decay, theta, consts = ops._prepare(p2m, cfg.p2m, lcs)
+        args = (ev, w2, v_inf, decay, theta, p2m["pv_gain"], p2m["pv_offset"])
+        ms = time_ms(lambda: pc.p2m_conv_cuda(*args, **consts), torch,
+                     flush=flush)
+        torch.cuda.empty_cache()
+        print(f"[tree {tree}] p2m_conv n_cfg={len(lcs)}: {ms:.4f} ms")
+    for S in (1, 4):
+        fc = fold_chunk_device_ms(torch, S)
+        print(f"[tree {tree}] fold_chunk(mode=\"mac\") S={S}: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in fc)
+              + f"; sum {sum(v for _, v in fc):.4f} ms")
+
+
 def main() -> int:
+    global SRC
+    if sys.argv[1:2] == ["--measure-tree"]:
+        SRC = Path(sys.argv[2]).resolve() / "src"
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              f"the root of a checkout")
@@ -955,6 +1080,10 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
+    if sys.argv[1:2] == ["--measure-tree"]:
+        print(f"[device] nvidia-smi: {nvidia_smi()}")
+        measure_tree(torch)
+        return 0
     t_all = time.perf_counter()
 
     # 1. device

@@ -76,6 +76,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one box of a 3-D tensor map, as tma_load_4d
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*,
@@ -118,6 +130,32 @@ inline cudaError_t map_bf16_4d(CUtensorMap* map, const void* base, int n0,
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A map over a contiguous float32 tensor [n2, n1, n0] (n0 innermost, n0 *
+// 4 bytes a multiple of 16) that loads unswizzled boxes of b0 x b1 x b2
+// elements (b0 * 4 bytes a multiple of 16); elements out of bounds (also
+// at negative coordinates) arrive as zeros.
+inline cudaError_t map_f32_3d(CUtensorMap* map, const void* base,
+                              long long n0, long long n1, long long n2,
+                              int b0, int b1, int b2) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(n0),
+                              static_cast<cuuint64_t>(n1),
+                              static_cast<cuuint64_t>(n2)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(n0) * 4,
+                                 static_cast<cuuint64_t>(n0 * n1) * 4};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(b0),
+                             static_cast<cuuint32_t>(b1),
+                             static_cast<cuuint32_t>(b2)};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult rc = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

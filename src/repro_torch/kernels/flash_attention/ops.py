@@ -9,14 +9,18 @@ import torch
 
 from repro_torch.kernels.flash_attention.flash_attention import (
     gqa_attention_cuda)
-from repro_torch.kernels.flash_attention.ref import gqa_attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    KV_CHUNK, gqa_attention_ref)
 
 
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, kv_len: int | None = None
-                  ) -> torch.Tensor:
-    """q [B, Sq, H, hd]; k/v [B, Skv, KV, hd], H % KV == 0 → [B, Sq, H, hd]."""
+                  causal: bool = True, kv_len: int | None = None,
+                  chunk: int = KV_CHUNK) -> torch.Tensor:
+    """q [B, Sq, H, hd]; k/v [B, Skv, KV, hd], H % KV == 0 → [B, Sq, H, hd].
+    ``chunk``: the KV chunk over which the plain version rounds P when q is
+    narrower than float32 (the kernel's own kv tile is 128)."""
     if q.device.type == "cpu":
-        return gqa_attention_ref(q, k, v, causal=causal, kv_len=kv_len)
+        return gqa_attention_ref(q, k, v, causal=causal, kv_len=kv_len,
+                                 chunk=chunk)
     return gqa_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
                               causal=causal, kv_len=kv_len)

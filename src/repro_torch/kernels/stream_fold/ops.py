@@ -3,16 +3,16 @@ launch (``repro.kernels.stream_fold.ops`` in PyTorch).
 
 ``mode="deposit"`` computes the per-sub-slot conv deposits (one batched
 SAME conv over all sub-slots) and folds them in the kernel — bit-exact
-with the plain fold on the same device. ``mode="mac"`` moves the conv into
-the kernel as an im2col product, so the [S, N, F] deposit tensor never
-reaches device memory (≤ 1e-5 from deposit mode).
+with the plain fold on the same device. ``mode="mac"`` hands the frames to a
+kernel that does the im2col and the product itself, so neither patches
+nor the [S, N, F] deposit tensor reach device memory (≤ 1e-5 from deposit
+mode).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.p2m_layer import _conv
-from repro_torch.kernels.p2m_conv.ops import _extract_patches
 from repro_torch.kernels.stream_fold.stream_fold import (
     stream_fold, stream_fold_mac,
 )
@@ -34,15 +34,13 @@ def fold_chunk(x: torch.Tensor, frames: torch.Tensor, w_q: torch.Tensor,
     F = w_q.shape[-1]
     x_flat = x.reshape(-1, F)
     N = x_flat.shape[0]
-    ev = frames.transpose(0, 1).reshape(S * B, H, W, Cin)   # sub-slot major
     if mode == "deposit":
+        ev = frames.transpose(0, 1).reshape(S * B, H, W, Cin)  # sub-slot major
         dep = (_conv(ev, w_q, stride) * dv_unit).reshape(S, N, F)
         out = stream_fold(x_flat, dep, a)
     elif mode == "mac":
-        k = w_q.shape[0]
-        patches, _ = _extract_patches(ev, k, stride)        # [S·B, P, K]
-        out = stream_fold_mac(x_flat, patches.reshape(S, N, k * k * Cin),
-                              w_q.reshape(k * k * Cin, F), a,
+        out = stream_fold_mac(x_flat, frames.contiguous(),
+                              w_q.reshape(-1, F), a, stride=stride,
                               dv_unit=dv_unit)
     else:
         raise ValueError(f"unknown stream_fold mode {mode!r} "

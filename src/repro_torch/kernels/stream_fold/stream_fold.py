@@ -7,7 +7,11 @@ or raises. ``LAUNCHES`` counts kernel launches, one per call that reached
 the card. The deposit-mode fold has two hand-written routes, chosen by
 shape (:func:`fold_route`): a float4 kernel where F % 4 == 0 and every
 buffer is 16-byte aligned (counted as ``fold``), a one-float-per-thread
-kernel otherwise (counted as ``fold_scalar``).
+kernel otherwise (counted as ``fold_scalar``). So has the MAC-mode fold
+(:func:`mac_route`): tiles loaded by TMA and products on the tensor cores
+for the 3×3 kernel over ON/OFF with F % 8 == 0, W even and x0 and the
+frames 16-byte aligned (counted as ``fold_mac``), cp.async and FMA loops
+for any other shape (``fold_mac_cp``).
 """
 from __future__ import annotations
 
@@ -15,13 +19,14 @@ import ctypes
 
 import torch
 
+from repro_torch.core.snn import same_pads
 from repro_torch.kernels import _build
 from repro_torch.kernels.stream_fold.ref import (
-    stream_fold_mac_ref, stream_fold_ref,
+    stream_fold_mac_frames_ref, stream_fold_ref,
 )
 
-LAUNCHES = {"fold": 0, "fold_scalar": 0, "fold_mac": 0}
-_MAX_SHARED_BYTES = 48 * 1024
+LAUNCHES = {"fold": 0, "fold_scalar": 0, "fold_mac": 0, "fold_mac_cp": 0}
+_MAX_SHARED_BYTES = 232448  # what one block may opt in to on Hopper
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -29,16 +34,19 @@ _SIGNATURES = {
                         ctypes.c_int, _P],
     "stream_fold_x4_f32": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int,
                            ctypes.c_int, _P],
-    "stream_fold_mac_f32": [_P, _P, _P, _P, _P, ctypes.c_longlong,
-                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                            ctypes.c_float, _P],
+    "stream_fold_mac_f32": [_P] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 11
+                           + [ctypes.c_float, _P],
+    "stream_fold_mac_cp_f32": [_P] * 5 + [ctypes.c_longlong]
+                              + [ctypes.c_int] * 11 + [ctypes.c_float, _P],
+    "stream_fold_mac_shmem_bytes": [ctypes.c_int] * 6,
 }
 
 
 def _fn(name: str):
     fn = getattr(_build.load("stream_fold"), name)
     fn.argtypes = _SIGNATURES[name]
-    fn.restype = ctypes.c_int
+    fn.restype = (ctypes.c_longlong if name.endswith("_bytes")
+                  else ctypes.c_int)
     return fn
 
 
@@ -105,28 +113,61 @@ def stream_fold_cuda(x0: torch.Tensor, deposits: torch.Tensor,
     return out
 
 
-def stream_fold_mac_cuda(x0: torch.Tensor, patches: torch.Tensor,
-                         w: torch.Tensor, a: torch.Tensor, *,
+def mac_route(x0: torch.Tensor, frames: torch.Tensor, w: torch.Tensor
+              ) -> str:
+    """``"tma"`` when the MAC-mode fold over these buffers can load its
+    tiles by TMA and take its products on the tensor cores — a 3×3 kernel
+    (w [18, F]) over Cin 2, F % 8 == 0 and at most 256, W even, x0 and the
+    frames 16-byte aligned — else ``"cp"``."""
+    F = w.shape[-1]
+    tma = (frames.shape[-1] == 2 and w.shape[0] == 18 and F % 8 == 0
+           and F <= 256 and frames.shape[-2] % 2 == 0
+           and x0.data_ptr() % 16 == 0 and frames.data_ptr() % 16 == 0)
+    return "tma" if tma else "cp"
+
+
+_MAC_ENTRY = {"tma": ("stream_fold_mac_f32", "fold_mac"),
+              "cp": ("stream_fold_mac_cp_f32", "fold_mac_cp")}
+
+
+def stream_fold_mac_cuda(x0: torch.Tensor, frames: torch.Tensor,
+                         w: torch.Tensor, a: torch.Tensor, *, stride: int,
                          dv_unit: float) -> torch.Tensor:
-    """The fully fused fold: the deposit ``patches[s] @ w · dv_unit`` is
-    computed in the kernel. x0 [N, F]; patches [S, N, K]; w [K, F]; a [F]
-    → [N, F]. Matches the plain version to summation order (≤ 1e-5)."""
-    if patches.dim() != 3 or w.dim() != 2:
-        raise ValueError(f"patches must be [S, N, K] and w [K, F], got "
-                         f"{tuple(patches.shape)} and {tuple(w.shape)}")
-    S, N, K = patches.shape
-    F = w.shape[1]
-    if N * F * K == 0:
-        raise ValueError("stream_fold_mac needs N, K and F > 0")
-    if (K * F + F) * 4 > _MAX_SHARED_BYTES:
-        raise ValueError(f"w [{K}, {F}] does not fit the kernel's "
-                         f"{_MAX_SHARED_BYTES} B of shared memory")
-    _check({"x0": x0, "patches": patches, "w": w, "a": a},
-           {"x0": (N, F), "patches": (S, N, K), "w": (K, F), "a": (F,)})
+    """The fully fused fold: the deposit, the SAME conv of each sub-slot's
+    event frame with w times ``dv_unit``, is computed in the kernel from the
+    frames. x0 [B·Ho·Wo, F]; frames [B, S, H, W, Cin]; w [k·k·Cin, F] (rows
+    ordered kh, kw, Cin); a [F] → [B·Ho·Wo, F]. Matches
+    :func:`~repro_torch.kernels.stream_fold.ref.stream_fold_mac_frames_ref`
+    to summation order (≤ 1e-5). The kernel is the one :func:`mac_route`
+    chooses for these buffers."""
+    if frames.dim() != 5 or w.dim() != 2:
+        raise ValueError(f"frames must be [B, S, H, W, Cin] and w [K, F], "
+                         f"got {tuple(frames.shape)} and {tuple(w.shape)}")
+    B, S, H, W, Cin = frames.shape
+    K, F = w.shape
+    k = round((K // max(Cin, 1)) ** 0.5)
+    if B * S * H * W * Cin * F == 0 or k * k * Cin != K or stride < 1:
+        raise ValueError(f"stream_fold_mac needs non-empty frames, F > 0, "
+                         f"stride >= 1 and K = k·k·Cin rows of w, got "
+                         f"frames {tuple(frames.shape)} and w [{K}, {F}]")
+    ho, wo = -(-H // stride), -(-W // stride)
+    _check({"x0": x0, "frames": frames, "w": w, "a": a},
+           {"x0": (B * ho * wo, F), "frames": (B, S, H, W, Cin),
+            "w": (K, F), "a": (F,)})
+    route = mac_route(x0, frames, w)
+    entry, counter = _MAC_ENTRY[route]
+    shmem = _fn("stream_fold_mac_shmem_bytes")(S, Cin, F, k, stride,
+                                               int(route == "tma"))
+    if shmem > _MAX_SHARED_BYTES:
+        raise ValueError(f"S {S}, Cin {Cin}, F {F}, k {k}: one block needs "
+                         f"{shmem} B of shared memory, more than "
+                         f"{_MAX_SHARED_BYTES}")
+    pt, _ = same_pads(H, k, stride)
+    pl, _ = same_pads(W, k, stride)
     out = torch.empty_like(x0)
-    _launch("stream_fold_mac_f32", "fold_mac", out, x0.data_ptr(),
-            patches.data_ptr(), w.data_ptr(), a.data_ptr(), out.data_ptr(),
-            N, K, F, S, float(dv_unit))
+    _launch(entry, counter, out, x0.data_ptr(),
+            frames.data_ptr(), w.data_ptr(), a.data_ptr(), out.data_ptr(),
+            B, S, H, W, Cin, ho, wo, F, k, stride, pt, pl, float(dv_unit))
     return out
 
 
@@ -138,9 +179,13 @@ def stream_fold(x0: torch.Tensor, deposits: torch.Tensor,
     return stream_fold_cuda(x0, deposits, a)
 
 
-def stream_fold_mac(x0: torch.Tensor, patches: torch.Tensor, w: torch.Tensor,
-                    a: torch.Tensor, *, dv_unit: float) -> torch.Tensor:
-    """MAC-mode fold: the plain version on the CPU, the kernel on CUDA."""
-    if _on_cpu(x0, patches, w, a):
-        return stream_fold_mac_ref(x0, patches, w, a, dv_unit=dv_unit)
-    return stream_fold_mac_cuda(x0, patches, w, a, dv_unit=dv_unit)
+def stream_fold_mac(x0: torch.Tensor, frames: torch.Tensor, w: torch.Tensor,
+                    a: torch.Tensor, *, stride: int, dv_unit: float
+                    ) -> torch.Tensor:
+    """MAC-mode fold on event frames: the plain version on the CPU, the
+    kernel on CUDA."""
+    if _on_cpu(x0, frames, w, a):
+        return stream_fold_mac_frames_ref(x0, frames, w, a, stride=stride,
+                                          dv_unit=dv_unit)
+    return stream_fold_mac_cuda(x0, frames, w, a, stride=stride,
+                                dv_unit=dv_unit)

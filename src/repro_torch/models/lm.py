@@ -187,7 +187,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: LMConfig,
             xn = L.rmsnorm(h, bp["ln1"], cfg.norm_eps)
             q, k, v = L.project_qkv(bp["attn"], xn, xn, cfg, positions,
                                     positions)
-            o = gqa_attention(q, k, v, causal=True)
+            o = gqa_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
             h = h + L.attn_out(bp["attn"], o, cfg)
             h = h + L.mlp_apply(bp["mlp"], L.rmsnorm(h, bp["ln2"],
                                                      cfg.norm_eps), cfg)

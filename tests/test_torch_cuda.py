@@ -23,14 +23,17 @@ def _fold_inputs(seed, S, N, F):
     return x0, dep, a
 
 
-def _mac_inputs(seed, S, N, K, F):
+def _mac_inputs(seed, B, S, hw, cin, F, exact=False):
+    """x0 [B·Ho·Wo, F] for stride 1 (the caller reshapes for others),
+    frames [B, S, H, W, Cin] (event counts, plus a small non-integer part
+    unless ``exact``), w [9·Cin, F] in eighths, a [F]."""
     rng = np.random.default_rng(seed)
-    x0 = (rng.standard_normal((N, F)) * 0.05).astype(np.float32)
-    patches = (rng.poisson(0.5, (S, N, K))
-               + rng.uniform(0, 0.01, (S, N, K))).astype(np.float32)
-    w = (np.round(rng.uniform(-1, 1, (K, F)) * 8) / 8).astype(np.float32)
+    frames = rng.poisson(0.5, (B, S) + hw + (cin,)).astype(np.float32)
+    if not exact:
+        frames += rng.uniform(0, 0.01, frames.shape).astype(np.float32)
+    w = (np.round(rng.uniform(-1, 1, (9 * cin, F)) * 8) / 8).astype(np.float32)
     a = np.exp(-rng.uniform(size=F)).astype(np.float32)
-    return x0, patches, w, a
+    return frames, w, a
 
 
 @pytest.fixture
@@ -85,14 +88,48 @@ def test_cuda_fold_bit_exact_vs_plain(cuda_device, S, N, F, misaligned,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S,N,K,F", [(1, 4099, 18, 16), (4, 1000, 18, 8)])
-def test_cuda_fold_mac_vs_plain(cuda_device, S, N, K, F):
-    ts = [t.to(cuda_device) for t in _t(*_mac_inputs(S, S, N, K, F))]
-    n = sf.LAUNCHES["fold_mac"]
-    got = sf.stream_fold_mac(*ts, dv_unit=0.01)
-    assert sf.LAUNCHES["fold_mac"] == n + 1
-    torch.testing.assert_close(got, ref.stream_fold_mac_ref(*ts, dv_unit=0.01),
-                               rtol=0, atol=1e-5)
+@pytest.mark.parametrize("S,B,hw,cin,F,stride,case", [
+    (1, 1, (1, 4099), 2, 16, 1, ""),      # N 4099, K 18
+    (4, 10, (10, 10), 2, 8, 1, ""),       # N 1000, K 18
+    (2, 3, (13, 11), 2, 16, 2, ""),       # stride 2, H and W odd
+    (2, 3, (13, 14), 2, 16, 2, ""),       # stride 2, W even
+    (3, 2, (19, 21), 2, 16, 1, "misaligned"),  # x0 off the 16-byte grid
+    (2, 2, (9, 12), 2, 6, 1, ""),         # F % 4 != 0: one filter a thread
+    (2, 2, (12, 9), 1, 8, 2, ""),         # Cin 1: the generic-K kernel
+    (4, 2, (20, 34), 2, 16, 1, "exact"),  # event counts: bit-exact
+    (1, 16, (128, 128), 2, 16, 1, ""),    # the serving shape
+])
+def test_cuda_fold_mac_vs_plain(cuda_device, S, B, hw, cin, F, stride,
+                                case):
+    """The MAC-mode fold on event frames against its plain version
+    (im2col + the patch fold): within 1e-5, and bit for bit on event
+    counts (exact dot products); one launch a call of the route the shape
+    chooses, counted under its own name, and where that is the TMA route,
+    the cp.async route too, on the same values through a copy of x0 off
+    the 16-byte grid."""
+    frames, w, a = _mac_inputs(S + B, B, S, hw, cin, F,
+                               exact=case == "exact")
+    ho, wo = -(-hw[0] // stride), -(-hw[1] // stride)
+    x0 = (np.random.default_rng(S).standard_normal((B * ho * wo, F)) * 0.05
+          ).astype(np.float32)
+    x0, frames, w, a = [t.to(cuda_device) for t in _t(x0, frames, w, a)]
+    if case == "misaligned":
+        x0 = _misaligned(x0)
+    route = sf.mac_route(x0, frames, w)
+    assert route == ("tma" if cin == 2 and F % 8 == 0 and hw[1] % 2 == 0
+                     and case != "misaligned" else "cp")
+    want = ref.stream_fold_mac_frames_ref(x0, frames, w, a, stride=stride,
+                                          dv_unit=0.01)
+    runs = [(x0, route)] + ([(_misaligned(x0), "cp")] if route == "tma"
+                            else [])
+    for x, r in runs:
+        counter = {"tma": "fold_mac", "cp": "fold_mac_cp"}[r]
+        before = dict(sf.LAUNCHES)
+        got = sf.stream_fold_mac(x, frames, w, a, stride=stride,
+                                 dv_unit=0.01)
+        assert sf.LAUNCHES == {**before, counter: before[counter] + 1}
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=0 if case == "exact" else 1e-5)
 
 
 @pytest.mark.cuda
@@ -104,6 +141,27 @@ def test_cuda_wrapper_rejects_bad_inputs(cuda_device):
         sf.stream_fold(x0, dep, a.cpu())
     with pytest.raises(ValueError):
         sf.stream_fold(x0.t().contiguous().t(), dep[:, :, :3], a)
+
+
+@pytest.mark.cuda
+def test_cuda_fold_mac_rejects_bad_inputs(cuda_device):
+    frames, w, a = [t.to(cuda_device) for t in _t(*_mac_inputs(
+        0, 2, 1, (6, 6), 2, 4))]
+    x0 = torch.zeros((2 * 36, 4), device=cuda_device)
+    n = dict(sf.LAUNCHES)
+    kw = dict(stride=1, dv_unit=0.01)
+    with pytest.raises(TypeError):
+        sf.stream_fold_mac(x0, frames.double(), w, a, **kw)
+    with pytest.raises(ValueError, match="CUDA device"):
+        sf.stream_fold_mac(x0, frames, w.cpu(), a, **kw)
+    with pytest.raises(ValueError, match="shape"):
+        sf.stream_fold_mac(x0[:-1], frames, w, a, **kw)
+    with pytest.raises(ValueError, match="k·k·Cin"):
+        sf.stream_fold_mac(x0, frames, w[:17], a, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        sf.stream_fold_mac(x0, frames.transpose(2, 3).contiguous()
+                           .transpose(2, 3), w, a, **kw)
+    assert sf.LAUNCHES == n
 
 
 # ---------------------------------------------------------------------------
@@ -136,25 +194,85 @@ _CONSTS = dict(kernel_size=3, dv_unit=0.01, half_swing=0.4, v_lo=-0.4,
     ((13, 11), 2, 3, False, 5, 2),
     ((20, 17), 1, 8, True, 8, 2),
     ((9, 10), 2, 2, True, 6, 1),           # the kernel's generic-K path
-    ((8, 8), 1, 2, True, 40, 2),           # 640 threads a block
+    ((8, 8), 1, 2, True, 40, 2),           # 10 filter groups a site
+    ((12, 20), 1, 8, True, 64, 2),         # the most filters and configs
+    ((37, 46), 1, 1, True, 16, 2),         # H, W off the 8x16 tile
+    ((37, 46), 2, 3, True, 16, 2),
 ])
 def test_cuda_p2m_conv_vs_plain(cuda_device, hw, stride, n_cfg, nonlinear, F,
                                 cin):
-    """Bit-exact on exact inputs (event counts x eighths)."""
+    """Bit-exact on exact inputs (event counts x eighths), through the route
+    the shape chooses, counted under its own name; where that is the
+    tensor-core route, the FMA route too, on the same values through a copy
+    of the events off the 16-byte grid."""
     from repro_torch.kernels.p2m_conv import ops, p2m_conv
     ts = [t.to(cuda_device) for t in _t(*_conv_inputs(
         hw[0] + n_cfg, 2, 3, 4, hw, cin, F, n_cfg))]
     kw = dict(_CONSTS, stride=stride, nonlinear=nonlinear)
-    n = p2m_conv.LAUNCHES["p2m_conv"]
+    route = p2m_conv.conv_route(ts[0], ts[1], 3)
+    assert route == ("mma" if cin == 2 and F % 8 == 0 and hw[1] % 2 == 0
+                     else "fma")
+    s_ref, v_ref = ops.p2m_conv_events_ref(*ts, **kw)
+    ho, wo = -(-hw[0] // stride), -(-hw[1] // stride)
+    runs = [(ts[0], route)]
+    if route == "mma":
+        runs.append((_misaligned(ts[0]), "fma"))
+    for events, r in runs:
+        assert p2m_conv.conv_route(events, ts[1], 3) == r
+        counter = {"mma": "p2m_conv", "fma": "p2m_conv_fma"}[r]
+        before = dict(p2m_conv.LAUNCHES)
+        s, v = p2m_conv.p2m_conv_cuda(events, *ts[1:], **kw)
+        assert p2m_conv.LAUNCHES == {**before, counter: before[counter] + 1}
+        torch.cuda.synchronize()
+        assert tuple(v.shape) == (n_cfg, 2, 3, ho, wo, F)
+        torch.testing.assert_close(v, v_ref, rtol=0, atol=0)
+        torch.testing.assert_close(s, s_ref, rtol=0, atol=0)
+    assert 0 < float(s.sum()) < s.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fine_weights", "fractional_events",
+                                  "both"])
+def test_cuda_p2m_conv_split_terms(cuda_device, case):
+    """The tensor-core route's bf16 terms: weights on a 2^-12 grid (hi +
+    mid + lo terms of w) with counts <= 3 keep every dot product exact, so
+    the kernel is still bit-exact; non-integer events (their terms too) are
+    within chip_smoke.py's K1 tolerance (v_pre rtol 1e-5, atol 1e-6,
+    spikes equal off a 1e-5 band around theta)."""
+    from repro_torch.kernels.p2m_conv import ops, p2m_conv
+    ev, w, *rest = _conv_inputs(11, 2, 3, 4, (20, 24), 2, 16, 3)
+    rng = np.random.default_rng(12)
+    if case in ("fine_weights", "both"):
+        ev = np.minimum(ev, 3)
+        w = (np.round(rng.uniform(-1, 1, w.shape) * 4096) / 4096
+             ).astype(np.float32)
+    if case in ("fractional_events", "both"):
+        ev = ev + rng.uniform(0, 0.3, ev.shape).astype(np.float32)
+    ts = [t.to(cuda_device) for t in _t(ev, w, *rest)]
+    kw = dict(_CONSTS, stride=1)
+    assert p2m_conv.conv_route(ts[0], ts[1], 3) == "mma"
     s, v = p2m_conv.p2m_conv_cuda(*ts, **kw)
-    assert p2m_conv.LAUNCHES["p2m_conv"] == n + 1
     s_ref, v_ref = ops.p2m_conv_events_ref(*ts, **kw)
     torch.cuda.synchronize()
-    ho, wo = -(-hw[0] // stride), -(-hw[1] // stride)
-    assert tuple(v.shape) == (n_cfg, 2, 3, ho, wo, F)
-    torch.testing.assert_close(v, v_ref, rtol=0, atol=0)
-    torch.testing.assert_close(s, s_ref, rtol=0, atol=0)
+    if case == "fine_weights":
+        torch.testing.assert_close(v, v_ref, rtol=0, atol=0)
+        torch.testing.assert_close(s, s_ref, rtol=0, atol=0)
+    else:
+        torch.testing.assert_close(v, v_ref, rtol=1e-5, atol=1e-6)
+        band = (v_ref - ts[4][:, None, None, None, None]).abs() > 1e-5
+        assert torch.equal(s[band], s_ref[band])
     assert 0 < float(s.sum()) < s.numel()
+
+
+@pytest.mark.cuda
+def test_cuda_p2m_quotient_is_the_true_division(cuda_device):
+    """The kernel's v / half_swing (Markstein's correction step, __fdiv_rn
+    below |v| = 2^-100) equals __fdiv_rn bit for bit for every float32
+    with |v| <= 1, both signs: one launch over 2,130,706,434 values."""
+    from repro_torch.kernels.p2m_conv import p2m_conv
+    n = p2m_conv.LAUNCHES["p2m_conv"]
+    assert p2m_conv.quotient_check(0.4, cuda_device) == 0
+    assert p2m_conv.LAUNCHES["p2m_conv"] == n
 
 
 @pytest.mark.cuda

@@ -488,6 +488,57 @@ def test_prefill_then_decode_matches_reference(arch):
     _close(dec[:, 0], longer, ATOL)
 
 
+def test_prefill_then_decode_bf16_matches_reference():
+    """Serving numerics (bf16 compute) on the CPU: prefill, then four greedy
+    decode steps, in the reference and in the port from the same weights
+    and prompt. Every last-logit row agrees within 2^-6 of its largest
+    magnitude (four bf16 steps: both sides round each op's output to bf16,
+    in other summation orders), and the greedy tokens are equal."""
+    jcfg, cfg, jp, p = _params("internlm2-1.8b", compute="bfloat16")
+    B, S, n_dec = 2, 12, 4
+    tokens = np.random.default_rng(7).integers(0, cfg.vocab_size, (B, S))
+    last, cache = lm.prefill(p, torch.from_numpy(tokens), cfg,
+                             max_len=S + n_dec)
+    j_last, j_cache = j_lm.prefill(jp, jnp.asarray(tokens), jcfg,
+                                   max_len=S + n_dec)
+    got, want = [], []
+    for i in range(n_dec + 1):
+        a, b = _np(last), _np(j_last)
+        assert np.abs(a - b).max() <= 2.0 ** -6 * np.abs(b).max(), i
+        got.append(a.argmax(-1))
+        want.append(b.argmax(-1))
+        if i == n_dec:
+            break
+        last, cache = lm.decode_step(p, torch.from_numpy(got[-1][:, None]),
+                                     torch.tensor(S + i), cache, cfg)
+        j_last, j_cache = j_lm.decode_step(
+            jp, jnp.asarray(want[-1][:, None]), jnp.asarray(S + i, jnp.int32),
+            j_cache, jcfg)
+        last, j_last = last[:, 0], j_last[:, 0]
+    np.testing.assert_array_equal(np.stack(got), np.stack(want))
+
+
+@pytest.mark.parametrize("S,chunk", [(40, 64), (100, 64), (200, 64)])
+def test_prefill_attention_bf16_rounds_p_like_the_reference(S, chunk):
+    """The port's prefill attention on the CPU (gqa_attention with the
+    config's attn_chunk) against the reference prefill's attention_core on
+    the same bf16 q, k, v: every output within one bf16 step (2^-7
+    relative) of the reference's. Both round each KV chunk's unnormalised
+    P to bf16 before PV; a float32 softmax with P never rounded does not
+    hold to this."""
+    rng = np.random.default_rng(S)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                * scale).bfloat16()
+               for shape, scale in (((2, S, 4, 16), 2.0), ((2, S, 2, 16), 2.0),
+                                    ((2, S, 2, 16), 1.0)))
+    got = gqa_attention(q, k, v, causal=True, chunk=chunk)
+    assert got.dtype == torch.bfloat16
+    want = j_layers.attention_core(
+        *(jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+          for t in (q, k, v)), causal=True, chunk=chunk)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2.0 ** -7, atol=0)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_per_row_decode_matches_reference(arch):
     """Rows decoding at different positions in one batch
