@@ -27,8 +27,11 @@ no ``ok`` line):
                 grid) on the physics batch (4
                 synthetic-gesture samples × 4000 ms at 128×128, drawn on the
                 host first) for the three paper circuits and for one; the
-                LIF kernel in float32 and bfloat16 at the backbone's largest
-                LIF call (T 4, N 524,288) and at T 64, N 16,384; the
+                LIF kernel in float32 and bfloat16, soft and hard reset, at
+                the backbone's largest LIF call (T 4, N 524,288, wide
+                lanes; also off the 16-byte grid, narrow lanes), at T 64,
+                N 16,384 and at N odd (narrow lanes), timed beside a device
+                copy of the same bytes; the
                 flash-attention kernel through gqa_attention at the
                 internlm2-1.8b prefill (q/k/v [1, 2048, 16, 128], causal;
                 bfloat16 held per element, see ``fa_limit``), without the
@@ -54,8 +57,16 @@ no ``ok`` line):
                 ``p2m_apply_stacked`` in kernel mode against one scan per
                 circuit, and the LIF op on the backbone's first LIF input,
                 counters set to 0 before and read after;
+  6b. train   — the training step at full width on the physics batch:
+                fresh seeded weights, adamw(1e-3), 3 unfrozen steps then 3
+                under freeze_p2m (host-clock step ms, peak device memory,
+                one step under torch.profiler), no kernel launched, layer 1
+                bit-identical over the frozen steps; the trained params
+                evaluated in kernel and scan mode, logits equal;
   7. physics parity — the reduced() model evaluated in kernel mode on
-                cuda and on the CPU from the same seeded batch;
+                cuda and on the CPU from the same seeded batch; then 3
+                train steps at reduced() on cuda and on the CPU (loss,
+                gnorm and params within TRAIN_RTOL);
   8. lm       — LM request serving at full published width
                 (internlm2-1.8b through the flash-attention kernel,
                 mamba2-780m through the SSD kernel; serving numerics, bf16,
@@ -73,7 +84,7 @@ The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --measure-tree ROOT`` runs none of this: it times
-K1 and the MAC-mode fold_chunk as the checkout at ROOT has them (see
+K1, the MAC-mode fold_chunk and K4 as the checkout at ROOT has them (see
 ``measure_tree``), to compare two commits in one call.
 """
 from __future__ import annotations
@@ -104,6 +115,10 @@ SSD_RTOL = 1e-3
 LM_ARCHS = ("internlm2-1.8b", "mamba2-780m")
 LM_BATCH, LM_REQUESTS, LM_PROMPT, LM_GEN = 4, 8, 2048, 32
 LM_LOGIT_ATOL = 1e-3      # full-width prefill(S) + decode vs prefill(S + 1)
+TRAIN_STEPS = 3           # unfrozen steps, then as many under freeze_p2m
+# train steps on cuda vs the CPU: float32 convolutions summed in another
+# order; loss and gnorm relative, params relative to a leaf's largest
+TRAIN_RTOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -378,26 +393,67 @@ def phase_p2m_conv(torch, ops, pc, events, params, p2m_cfg, circuits,
     return rows
 
 
+# K4's cases: (T, N); each in float32 and bfloat16, soft and hard reset.
+# The backbone's largest LIF call takes the wide lanes (16 bytes a
+# thread), T 64 N 16,384 the narrow ones (4 bytes: few columns), N odd
+# the narrow or one-element lanes; the first two are timed
+LIF_CASES = ((4, 524288), (64, 16384), (4, 524287))
+
+
 def phase_lif(torch, lif, lif_ref, flush) -> dict:
-    """K4 bit-exact against its plain version in both types, at the
-    backbone's largest LIF call and at T 64, N 16,384."""
+    """K4 bit-exact against its plain version on each of ``LIF_CASES`` in
+    both types and both resets, and, at the backbone's shape, on a copy
+    off the 16-byte grid (narrow lanes); each case's route asserted. The
+    aligned cases are timed (soft reset) beside the plain version and a
+    device copy of the same bytes (``x.clone()``, a floor for any kernel
+    that reads x and writes as much), with both bounds printed."""
     gen = torch.Generator().manual_seed(2)
     rows = {}
-    for T, N in ((4, 524288), (64, 16384)):
+    for T, N in LIF_CASES:
         for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
             x = (torch.randn((T, N), generator=gen) * 1.5).to("cuda", dtype)
-            got, want = lif.lif_cuda(x), lif_ref(x)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                fail(f"lif T={T} N={N} {dtype} is not bit-exact")
+            want_route = "lif" if (T, N) == (4, 524288) else "lif_narrow"
+            cases = [(x, want_route)]
+            if (T, N) == (4, 524288):
+                cases.append((misaligned(torch, x), "lif_narrow"))
+            for xi, route in cases:
+                if lif.lif_route(xi) != route:
+                    fail(f"lif T={T} N={N} {name} (offset "
+                         f"{xi.data_ptr() % 16}) takes {lif.lif_route(xi)},"
+                         f" not {route}")
+                for soft in (True, False):
+                    got = lif.lif_cuda(xi, soft_reset=soft)
+                    want = lif_ref(xi, soft_reset=soft)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        fail(f"lif T={T} N={N} {name} {route} soft_reset="
+                             f"{soft} is not bit-exact")
+            if N % 4:
+                print(f"[kernels] lif              T={T} N={N} {name}: "
+                      f"{want_route} bit-exact, soft and hard reset")
+                continue
             b, by = bound_ms(2 * T * N * x.element_size(), 7 * T * N)
-            row = {"name": "lif", "max_abs_err": 0.0,
+            row = {"name": "lif", "route": want_route, "max_abs_err": 0.0,
                    "ms": time_ms(lambda: lif.lif_cuda(x), torch, flush=flush),
                    "plain_ms": time_ms(lambda: lif_ref(x), torch,
                                        flush=flush),
+                   "copy_ms": time_ms(lambda: x.clone(), torch, flush=flush),
                    "bound_ms": b, "bound_by": by, "library_ms": None}
+            if len(cases) > 1:
+                xo = cases[1][0]
+                row["narrow_ms"] = time_ms(lambda: lif.lif_cuda(xo), torch,
+                                           flush=flush)
             rows[(T, N, dtype)] = row
-            print_row(row, f"T={T} N={N} {str(dtype).split('.')[-1]}")
+            print_row(row, f"T={T} N={N} {name}")
+            print(f"[kernels] lif              T={T} N={N} {name}: route "
+                  f"{want_route}, bound {b * 1e3:.2f} us ({by}: "
+                  f"{2 * T * N * x.element_size() / 1e6:.2f} MB at 3.35 "
+                  f"TB/s), device copy of the same bytes {row['copy_ms']:.4f}"
+                  f" ms"
+                  + (f", narrow route on the copy off the 16-byte grid "
+                     f"{row['narrow_ms']:.4f} ms" if "narrow_ms" in row
+                     else "") + "; bit-exact, soft and hard reset")
     return rows
 
 
@@ -966,11 +1022,13 @@ def phase_physics(torch, cfg, params, state, events, labels, counters
     torch.cuda.synchronize()
     launches = {"p2m_conv": counters[0]["p2m_conv"], "lif": counters[1]["lif"]}
     # three kernel-mode evals, the profiled one and the stacked launch, all
-    # on the tensor-core route; one LIF op call; no fold
+    # on the tensor-core route; one LIF op call, on the wide lanes; no fold
     if (launches != {"p2m_conv": len(circuits) + 2, "lif": 1}
-            or counters[0]["p2m_conv_fma"] or any(counters[2].values())):
-        fail(f"physics launches {launches}, folds {counters[2]}: expected "
-             f"{len(circuits) + 2} p2m_conv, 1 lif and no fold")
+            or counters[0]["p2m_conv_fma"] or counters[1]["lif_narrow"]
+            or any(counters[2].values())):
+        fail(f"physics launches {launches}, lif {counters[1]}, folds "
+             f"{counters[2]}: expected {len(circuits) + 2} p2m_conv, 1 lif "
+             f"on the wide lanes and no fold")
     return launches
 
 
@@ -1028,13 +1086,175 @@ def phase_physics_parity(torch) -> float:
                         "physics reduced() cuda vs cpu")
 
 
+def phase_train(torch, cfg, events, labels, counters) -> dict:
+    """The training step at full width on the physics batch: fresh seeded
+    weights (``awake``), ``adamw(1e-3)``, ``TRAIN_STEPS`` unfrozen steps
+    then as many under ``freeze_p2m``, each timed on the host clock around
+    synchronised calls, with every kernel counter set to 0 before and read
+    after (training runs none: layer 1 trains through curvefit, the LIF
+    through snn.lif_over_time); one more step under torch.profiler, its
+    result discarded; then the trained params evaluated with make_eval_fn
+    in kernel mode (one K1 launch, counted) and in scan mode."""
+    import math
+    from repro_torch.core import codesign
+    from repro_torch.optim import adamw
+    from repro_torch.stream.deploy import tree_to
+    params, state = codesign.model_init(torch.Generator().manual_seed(1), cfg)
+    params = awake(tree_to(params, torch.device("cuda")))
+    state = tree_to(state, torch.device("cuda"))
+    opt = adamw(1e-3)
+    ostate = opt.init(params)
+    steps = {fz: codesign.make_train_step(cfg, opt, freeze_p2m=fz,
+                                          device="cuda")
+             for fz in (False, True)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero(counters)
+    out = {"step_ms": {False: [], True: []}}
+    p2m0 = fc1_0 = None
+    for i in range(2 * TRAIN_STEPS):
+        frozen = i >= TRAIN_STEPS
+        if frozen and p2m0 is None:
+            p2m0 = {k: v.clone() for k, v in params["p2m"].items()}
+            fc1_0 = params["backbone"]["fc1"]["w"].clone()
+        t0 = time.perf_counter()
+        params, ostate, state, m, aux = steps[frozen](params, ostate, state,
+                                                      events, labels)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out["step_ms"][frozen].append(ms)
+        loss, gnorm = float(m["loss"]), float(m["gnorm"])
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            fail(f"train step {i}: loss {loss}, gnorm {gnorm}")
+        print(f"[train] step {i} freeze_p2m={frozen}: {ms:.1f} ms (host "
+              f"clock), loss {loss:.6f}, gnorm {gnorm:.6f}, acc "
+              f"{float(m['acc']):.2f}, spikes/p2m "
+              f"{float(aux['spikes/p2m']):.0f}, spikes/fc0 "
+              f"{float(aux['spikes/fc0']):.0f}")
+    torch.cuda.synchronize()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    launched = read(counters)
+    if any(launched.values()):
+        fail(f"training launched kernels: {launched}")
+    for k, v in p2m0.items():
+        if not torch.equal(params["p2m"][k], v):
+            fail(f"freeze_p2m moved layer 1's {k}")
+    if torch.equal(params["backbone"]["fc1"]["w"], fc1_0):
+        fail("the frozen steps left fc1 where it was")
+    warm = sorted(out["step_ms"][False][1:])      # the first allocates
+    frz = sorted(out["step_ms"][True])
+    print(f"[train] {TRAIN_STEPS} unfrozen + {TRAIN_STEPS} frozen steps at "
+          f"batch {len(labels)}: unfrozen step {warm[len(warm) // 2]:.1f} ms "
+          f"(median after the first, host clock), frozen step "
+          f"{frz[len(frz) // 2]:.1f} ms (median), "
+          f"peak device memory {out['peak_gib']:.2f} GiB "
+          f"(max_memory_allocated); no kernel launched; layer 1 "
+          f"bit-identical over the frozen steps, fc1 moved")
+    profile_eval(torch, steps[False], (params, ostate, state, events, labels),
+                 top=8, tag="train", what="one unfrozen train step")
+
+    zero(counters)
+    evals = {}
+    for mode in ("kernel", "scan"):
+        fn = codesign.make_eval_fn(with_mode(cfg, mode), device="cuda")
+        evals[mode] = fn(params, state, events, labels)
+    torch.cuda.synchronize()
+    (mk, ak), (ms_, as_) = evals["kernel"], evals["scan"]
+    got, want = mk["logits"].cpu(), ms_["logits"].cpu()
+    if not torch.isfinite(got).all():
+        fail("trained params: non-finite kernel-mode logits")
+    diff = float((got - want).abs().max())
+    if not diff <= LOGIT_ATOL:
+        fail(f"trained params: kernel vs scan logits differ by {diff}")
+    for key in ak:
+        if float(ak[key]) != float(as_[key]):
+            fail(f"trained params: aux {key} kernel {float(ak[key])} vs "
+                 f"scan {float(as_[key])}")
+    if not float(ak["spikes/p2m"]) > 0:
+        fail("trained params: layer 1 never fired, the comparison would be "
+             "vacuous")
+    k1 = read(counters)
+    if k1 != {**{k: 0 for k in k1}, "p2m_conv": 1}:
+        fail(f"trained-params eval launches {k1}: expected one p2m_conv")
+    out["eval_diff"] = diff
+    print(f"[train] trained params, make_eval_fn kernel vs scan: max |logit "
+          f"diff| {diff:.3g} (max |logit| {float(want.abs().max()):.3g}), "
+          f"every aux counter equal (spikes/p2m "
+          f"{float(ak['spikes/p2m']):.0f}), launches {k1}")
+    return out
+
+
+def phase_train_parity(torch) -> dict:
+    """TRAIN_STEPS unfrozen steps at reduced() on cuda and on the CPU from
+    the same seeded weights and batches: per step loss and gnorm within
+    TRAIN_RTOL, and the params after the last step within TRAIN_RTOL of
+    each leaf's largest magnitude. The conv biases are held apart: train
+    BN subtracts them, so their exact gradient is 0, each device returns
+    roundoff, and Adam turns that into steps of up to about lr either way
+    (|Δ| ≤ 2·lr per step)."""
+    from repro_torch.configs import p2m_dvs
+    from repro_torch.core import codesign
+    from repro_torch.data import events as ev_mod
+    from repro_torch.optim import adamw
+    from repro_torch.stream.deploy import tree_to
+    from repro_torch.utils import tree_paths
+    cfg, data = p2m_dvs.reduced()
+    batches = [ev_mod.sample_batch(torch.Generator().manual_seed(2 + i), data,
+                                   PHYS_B, cfg.p2m.t_intg_ms, cfg.p2m.n_sub)
+               for i in range(TRAIN_STEPS)]
+    runs = {}
+    for device in ("cuda", "cpu"):
+        dev = torch.device(device)
+        params, state = codesign.model_init(torch.Generator().manual_seed(0),
+                                            cfg)
+        params, state = awake(tree_to(params, dev)), tree_to(state, dev)
+        opt = adamw(1e-3)
+        ostate = opt.init(params)
+        step = codesign.make_train_step(cfg, opt, freeze_p2m=False,
+                                        device=device)
+        rec = []
+        for ev, lab in batches:
+            params, ostate, state, m, _ = step(params, ostate, state, ev, lab)
+            rec.append((float(m["loss"]), float(m["gnorm"])))
+        runs[device] = (rec, dict(tree_paths(tree_to(params,
+                                                     torch.device("cpu")))))
+    worst = 0.0
+    for i, ((lc, gc), (lp, gp)) in enumerate(zip(runs["cuda"][0],
+                                                 runs["cpu"][0])):
+        for what, a, b in (("loss", lc, lp), ("gnorm", gc, gp)):
+            rel = abs(a - b) / abs(b)
+            worst = max(worst, rel)
+            if not rel <= TRAIN_RTOL:
+                fail(f"train parity step {i}: {what} cuda {a} vs cpu {b}")
+    pc, pp = runs["cuda"][1], runs["cpu"][1]
+    leaf_worst = 0.0
+    for path, want in pp.items():
+        err = float((pc[path] - want).abs().max())
+        if path.startswith("backbone/conv") and path.endswith("/b"):
+            if not err <= 2 * 1e-3 * TRAIN_STEPS:
+                fail(f"train parity: conv bias {path} differs by {err}")
+            continue
+        rel = err / float(want.abs().max())
+        leaf_worst = max(leaf_worst, rel)
+        if not rel <= TRAIN_RTOL:
+            fail(f"train parity: {path} differs by {err} ({rel:.3g} of its "
+                 f"largest magnitude)")
+    print(f"[train parity] reduced(), {TRAIN_STEPS} unfrozen steps of batch "
+          f"{PHYS_B}: cuda vs cpu loss/gnorm max relative diff {worst:.3g}, "
+          f"params max diff {leaf_worst:.3g} of a leaf's largest magnitude "
+          f"(limit {TRAIN_RTOL:g}); losses cuda "
+          f"{[round(x, 6) for x, _ in runs['cuda'][0]]}")
+    return {"rel": worst, "params": leaf_worst}
+
+
 def measure_tree(torch) -> None:
-    """``--measure-tree ROOT``: K1 and the MAC-mode fold_chunk as the
+    """``--measure-tree ROOT``: K1, the MAC-mode fold_chunk and K4 as the
     checkout at ROOT has them (its src/ first on the path, its kernels
     built into ROOT/build), so two commits are timed on one card in one
     call: K1 on the physics batch for the three paper circuits and for one
-    (CUDA events, as phase_p2m_conv), and one fold_chunk(mode="mac") call's
-    device time at S 1 and 4 (torch.profiler)."""
+    (CUDA events, as phase_p2m_conv), one fold_chunk(mode="mac") call's
+    device time at S 1 and 4 (torch.profiler), and K4 at its two timed
+    shapes in both types (CUDA events, as phase_lif)."""
     from repro_torch.configs import p2m_dvs
     from repro_torch.core import codesign, leakage
     from repro_torch.data import events as ev_mod
@@ -1043,7 +1263,7 @@ def measure_tree(torch) -> None:
     from repro_torch.kernels.backend import resolve_device
     from repro_torch.stream import deploy
     resolve_device("cuda")
-    _build.build(["p2m_conv", "stream_fold"])
+    _build.build(["p2m_conv", "stream_fold", "lif"])
     cfg = p2m_dvs.CONFIG
     ev, _ = ev_mod.sample_batch(torch.Generator().manual_seed(0),
                                 p2m_dvs.DATA, PHYS_B, cfg.p2m.t_intg_ms,
@@ -1065,6 +1285,14 @@ def measure_tree(torch) -> None:
         print(f"[tree {tree}] fold_chunk(mode=\"mac\") S={S}: "
               + ", ".join(f"{k} {v:.4f}" for k, v in fc)
               + f"; sum {sum(v for _, v in fc):.4f} ms")
+    from repro_torch.kernels.lif import lif
+    gen = torch.Generator().manual_seed(2)
+    for T, N in LIF_CASES[:2]:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn((T, N), generator=gen) * 1.5).to("cuda", dtype)
+            ms = time_ms(lambda: lif.lif_cuda(x), torch, flush=flush)
+            print(f"[tree {tree}] lif T={T} N={N} "
+                  f"{str(dtype).split('.')[-1]}: {ms:.4f} ms")
 
 
 def main() -> int:
@@ -1226,13 +1454,25 @@ def main() -> int:
     phys = phase_physics(torch, cfg, params, state, events, labels,
                          (pc.LAUNCHES, lif.LAUNCHES, sf.LAUNCHES))
     print(f"[physics] main-path launches: {phys}")
-    del events, params, state
+    del params, state
+    torch.cuda.empty_cache()
+
+    # 6b. the training step at full width, on the same batch
+    t0 = time.perf_counter()
+    train = phase_train(torch, cfg, events, labels,
+                        (pc.LAUNCHES, lif.LAUNCHES, sf.LAUNCHES, fa.LAUNCHES,
+                         sd.LAUNCHES))
+    print(f"[train] phase {time.perf_counter() - t0:.1f} s")
+    del events
     torch.cuda.empty_cache()
 
     # 7. the physics eval on cuda and on the CPU, at reduced()
     diff = phase_physics_parity(torch)
     print(f"[physics parity] reduced(), kernel mode: cuda vs cpu max "
           f"|logit diff| {diff:.3g}")
+    t0 = time.perf_counter()
+    phase_train_parity(torch)
+    print(f"[train parity] {time.perf_counter() - t0:.1f} s")
 
     # 8. LM request serving at full width, through K5 and K6
     counters = (sf.LAUNCHES, pc.LAUNCHES, lif.LAUNCHES, fa.LAUNCHES,

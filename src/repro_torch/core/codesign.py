@@ -1,6 +1,12 @@
 """The paper's full model: P²M layer 1 + spiking-CNN backbone — the model
-config, initialisation, forward and eval step of ``repro.core.codesign``
-in PyTorch. The train step comes with the training slice.
+config, initialisation, forward, train step and eval step of
+``repro.core.codesign`` in PyTorch.
+
+Training follows the reference (paper §3): layer 1 trains through the
+differentiable curve-fit forward (``cfg.p2m.mode = "curvefit"``, the
+default), the backbone's LIF through ``snn.lif_over_time`` and its
+surrogate gradient; no hand-written kernel runs in a train step. Under
+``freeze_p2m`` layer 1 is held fixed (paper §3, phase 2).
 """
 from __future__ import annotations
 
@@ -12,6 +18,9 @@ from repro_torch.core import p2m_layer, snn
 from repro_torch.core.p2m_layer import P2MConfig
 from repro_torch.core.snn import SpikingCNNConfig
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.optim.optimizers import (Optimizer, apply_updates,
+                                          clip_by_global_norm)
+from repro_torch.utils import tree_map, tree_paths, unflatten_dict
 
 Params = dict
 
@@ -43,31 +52,87 @@ def model_init(gen: torch.Generator, cfg: P2MModelConfig
 
 
 def model_apply(params: Params, state: dict, events: torch.Tensor,
-                cfg: P2MModelConfig, *, train: bool = False
+                cfg: P2MModelConfig, *, train: bool
                 ) -> tuple[torch.Tensor, dict, dict]:
-    """Evaluation forward. events [B, T_fine, n_sub, H, W, 2] at the P²M
-    fine grid → (logits [B, n_classes], the unchanged BN state, aux) with
-    the reference's layer-1 counters ``spikes/p2m``, ``events/in`` and
-    ``macs/p2m``. Layer 1 runs in ``cfg.p2m.mode``."""
-    if train:
+    """events [B, T_fine, n_sub, H, W, 2] at the P²M fine grid → (logits
+    [B, n_classes], new BN state, aux). Layer 1 runs in ``cfg.p2m.mode``;
+    with ``train`` the backbone's BN normalises by batch statistics and
+    the returned state carries the moved running statistics. ``aux`` holds
+    the backbone's ``spikes/*`` and ``synops/*`` counters and layer 1's
+    ``spikes/p2m``, ``events/in`` and ``macs/p2m``, as the reference's.
+
+    ``kernel`` mode under autograd raises: the P²M conv kernel has no
+    backward (nor has the reference's Pallas kernel); train through
+    ``curvefit``."""
+    if train and cfg.p2m.mode == "kernel" and torch.is_grad_enabled():
         raise NotImplementedError(
-            "model_apply(train=True) comes with the training slice (BN "
-            "batch statistics, make_train_step); this port evaluates only")
+            "layer 1 in kernel mode has no backward (the P²M conv kernel "
+            "is forward only); train with p2m.mode='curvefit'")
     spikes1, _ = p2m_layer.p2m_apply(params["p2m"], events, cfg.p2m)
     # layer 1's own 2x pool (pixel-pitch parity with the backbone)
     B, T = spikes1.shape[:2]
     tb = snn.max_pool(spikes1.reshape((B * T,) + spikes1.shape[2:]))
     spikes1 = tb.reshape((B, T) + tb.shape[1:])
     coarse = p2m_layer.coarsen_spikes(spikes1, cfg.coarsen_group())
-    logits = snn.spiking_cnn_apply(params["backbone"], state, coarse,
-                                   cfg.backbone)
+    logits, new_state, aux = snn.spiking_cnn_apply(
+        params["backbone"], state, coarse, cfg.backbone, train=train)
     k = cfg.p2m.kernel_size
-    aux = {"spikes/p2m": torch.sum(spikes1),
-           "events/in": torch.sum(events),
-           "macs/p2m": torch.tensor(float(spikes1.numel()) * k * k
-                                    * cfg.p2m.in_channels,
-                                    device=events.device)}
-    return logits, state, aux
+    aux["spikes/p2m"] = torch.sum(spikes1).detach()
+    aux["events/in"] = torch.sum(events).detach()
+    aux["macs/p2m"] = torch.tensor(float(spikes1.numel()) * k * k
+                                   * cfg.p2m.in_channels,
+                                   device=events.device)
+    return logits, new_state, aux
+
+
+def make_train_step(cfg: P2MModelConfig, opt: Optimizer, *,
+                    freeze_p2m: bool,
+                    device: str | torch.device | None = None):
+    """``step(params, opt_state, state, events, labels) → (params,
+    opt_state, new_state, {"loss", "gnorm", "acc"}, aux)`` on ``device``
+    (cuda unless the caller asks for the CPU). Params, optimizer state and
+    BN state must already be on that device; events and labels are moved
+    there. Functional: the inputs are not modified.
+
+    The reference's order of work: the cross-entropy loss and its
+    gradients; under ``freeze_p2m`` the layer-1 gradients zeroed before
+    the clip (so they add nothing to ``gnorm``); the clip at global norm
+    1; the optimizer update; under ``freeze_p2m`` the layer-1 updates
+    zeroed too (AdamW's weight decay would otherwise shrink the frozen
+    weights); then the update applied. Frozen layer-1 leaves are not
+    differentiated at all, so no layer-1 graph is kept; their zero
+    gradients are what the reference computes and then discards."""
+    dev = resolve_device(device)
+
+    def step(params: Params, opt_state, state: dict, events, labels):
+        events = torch.as_tensor(events, dtype=torch.float32, device=dev)
+        labels = torch.as_tensor(labels, device=dev).long()
+        leaves = dict(tree_paths(params))
+        trainable = [path for path in leaves
+                     if not (freeze_p2m and path.startswith("p2m/"))]
+        diff = {path: t.detach().requires_grad_(path in trainable)
+                for path, t in leaves.items()}
+        with torch.enable_grad():
+            logits, new_state, aux = model_apply(
+                unflatten_dict(diff), state, events, cfg, train=True)
+            loss = snn.cross_entropy(logits, labels)
+            got = torch.autograd.grad(loss, [diff[p] for p in trainable])
+        by_path = dict(zip(trainable, got))
+        grads = unflatten_dict({path: by_path[path] if path in by_path
+                                else torch.zeros_like(t)
+                                for path, t in leaves.items()})
+        grads, gnorm = clip_by_global_norm(grads, 1.0)
+        updates, opt_state = opt.update(grads, opt_state, params)
+        if freeze_p2m:
+            updates = {**updates,
+                       "p2m": tree_map(torch.zeros_like, updates["p2m"])}
+        params = apply_updates(params, updates)
+        logits = logits.detach()
+        metrics = {"loss": loss.detach(), "gnorm": gnorm,
+                   "acc": snn.accuracy(logits, labels)}
+        return params, opt_state, new_state, metrics, aux
+
+    return step
 
 
 def make_eval_fn(cfg: P2MModelConfig, *,
@@ -83,7 +148,8 @@ def make_eval_fn(cfg: P2MModelConfig, *,
         events = torch.as_tensor(events, dtype=torch.float32, device=dev)
         labels = torch.as_tensor(labels, device=dev).long()
         with torch.no_grad():
-            logits, _, aux = model_apply(params, state, events, cfg)
+            logits, _, aux = model_apply(params, state, events, cfg,
+                                         train=False)
             return {"acc": snn.accuracy(logits, labels),
                     "loss": snn.cross_entropy(logits, labels),
                     "logits": logits}, aux

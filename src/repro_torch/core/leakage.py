@@ -13,7 +13,7 @@ import enum
 import functools
 import math
 from collections.abc import Sequence
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
@@ -57,7 +57,8 @@ class LeakParams:
 @dataclass(frozen=True)
 class LeakCoeffs:
     """Branch-free numeric encoding of one :class:`LeakageConfig` (float32
-    scalars, as the reference folds them)."""
+    scalars, as the reference folds them); :func:`stacked_leak_coeffs`
+    holds several configs as float32 tensors on a leading [n_cfg] axis."""
     is_basic: float
     vdd: float
     v_precharge: float
@@ -105,6 +106,17 @@ def leak_coeffs(cfg: LeakageConfig,
         sigma=_f32(cfg.sigma))
 
 
+def stacked_leak_coeffs(cfgs: Sequence[LeakageConfig],
+                        default_v_threshold: float = DEFAULT_V_THRESHOLD
+                        ) -> LeakCoeffs:
+    """Coefficients of several configs, each field a float32 tensor on a
+    leading [n_cfg] axis."""
+    per = [leak_coeffs(c, default_v_threshold) for c in cfgs]
+    return LeakCoeffs(**{f.name: torch.tensor(
+        [getattr(co, f.name) for co in per], dtype=torch.float32)
+        for f in fields(LeakCoeffs)})
+
+
 @functools.lru_cache(maxsize=None)
 def _tau_sigma_units(n_filters: int) -> np.ndarray:
     """Frozen per-filter standard-normal draw behind the process-variation
@@ -118,11 +130,16 @@ def leak_params_from_coeffs(w: torch.Tensor, co: LeakCoeffs) -> LeakParams:
     [..., n_filters] (reduced over all leading axes); differentiable
     w.r.t. ``w``. Sigma scales each filter's tau by ``exp(sigma * z_f)``."""
     reduce_axes = tuple(range(w.dim() - 1))
-    pos = torch.sum(torch.clamp(w, min=0.0), dim=reduce_axes)
-    neg = torch.sum(torch.clamp(-w, min=0.0), dim=reduce_axes)
-    mean_abs = torch.mean(torch.abs(w), dim=reduce_axes)
+    # at a weight quantized to exactly 0 the gradients follow JAX's:
+    # torch.maximum splits a tie in half as jnp.maximum does (clamp would
+    # pass it whole), and |w| takes slope 1 at 0 as jnp.abs does
+    # (torch.abs takes 0)
+    zero = torch.zeros((), dtype=w.dtype, device=w.device)
+    pos = torch.sum(torch.maximum(w, zero), dim=reduce_axes)
+    neg = torch.sum(torch.maximum(-w, zero), dim=reduce_axes)
+    mean_abs = torch.mean(torch.where(w >= 0, w, -w), dim=reduce_axes)
     v_inf_basic = co.vdd * pos / (pos + neg + co.w_eps) - co.v_precharge
-    tau_basic = co.tau0_a_ms / torch.clamp(mean_abs, min=co.w_eps)
+    tau_basic = co.tau0_a_ms / torch.maximum(mean_abs, zero + co.w_eps)
     if co.is_basic > 0.5:
         v_inf, tau = v_inf_basic, tau_basic
     else:
@@ -143,6 +160,23 @@ def stacked_leak_params(w: torch.Tensor, cfgs: Sequence[LeakageConfig]
     """Leak linearizations of several circuit configs from one kernel,
     stacked on a leading config axis: fields [n_cfg, ...filters]."""
     per = [kernel_leak_params(w, c) for c in cfgs]
+    return LeakParams(v_inf=torch.stack([p.v_inf for p in per]),
+                      tau_ms=torch.stack([p.tau_ms for p in per]))
+
+
+def grouped_leak_params(w_s: torch.Tensor, cfgs: Sequence[LeakageConfig]
+                        ) -> LeakParams:
+    """Leak linearizations for per-config kernel weights: ``w_s`` has a
+    leading [n_cfg] axis (one kernel per circuit config, the unfrozen
+    phase-2 state) and config ``i`` is linearized around ``w_s[i]``.
+    Fields [n_cfg, ...filters]; differentiable w.r.t. ``w_s``. The
+    reference's ``vmap`` over the config axis is a loop over configs
+    here (n_cfg is a handful; each linearization is a few reductions)."""
+    if w_s.shape[0] != len(cfgs):
+        raise ValueError(f"w_s has {w_s.shape[0]} kernels for {len(cfgs)} "
+                         f"configs")
+    per = [leak_params_from_coeffs(w_s[i], leak_coeffs(c))
+           for i, c in enumerate(cfgs)]
     return LeakParams(v_inf=torch.stack([p.v_inf for p in per]),
                       tau_ms=torch.stack([p.tau_ms for p in per]))
 

@@ -252,6 +252,31 @@ def p2m_forward_curvefit_coeffs(params: Params, events: torch.Tensor,
     return spike_fn(v_pre - coeffs.v_threshold), v_pre
 
 
+def p2m_forward_curvefit_grouped(params_s: Params, events: torch.Tensor,
+                                 cfg: P2MConfig,
+                                 leak_cfgs: tuple[LeakageConfig, ...]
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Curve-fit forward with per-config layer-1 params (unfrozen phase
+    2): every leaf of ``params_s`` carries a leading [n_cfg] axis, and
+    config ``i`` re-linearizes its leak from its own weights, so autograd
+    gives each config its own layer-1 gradient. Returns (spikes, v_pre),
+    both [n_cfg, B, T_out, H', W', C_out]. The reference's ``vmap`` over
+    configs is a loop here: each config runs its own conv."""
+    out = [p2m_forward_curvefit_coeffs(
+        {k: v[i] for k, v in params_s.items()}, events, cfg,
+        leakage.leak_coeffs(lc, cfg.v_threshold))
+        for i, lc in enumerate(leak_cfgs)]
+    return (torch.stack([s for s, _ in out]),
+            torch.stack([v for _, v in out]))
+
+
+def stack_p2m_params(params: Params, n_cfg: int) -> Params:
+    """Layer-1 params replicated onto a leading [n_cfg] config axis — the
+    start of the unfrozen phase-2 finetune (every config starts from the
+    shared pretrained kernel)."""
+    return {k: torch.stack([v] * n_cfg) for k, v in params.items()}
+
+
 def coarsen_spikes(spikes: torch.Tensor, group: int) -> torch.Tensor:
     """Sum fine-grid spikes onto the backbone's coarse grid:
     [B, T_fine, ...] → [B, T_fine // group, ...] (multi-bit counts)."""

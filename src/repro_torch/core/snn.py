@@ -1,7 +1,7 @@
-"""Spiking-CNN substrate — the evaluation and streaming half of
-``repro.core.snn`` in PyTorch: LIF neurons with an ATan surrogate
-gradient, conv/BN/dense/pool helpers, and the paper's backbone
-(4× [conv→BN→LIF→maxpool] → FC512 → LIF → FC, rate decoding).
+"""Spiking-CNN substrate — ``repro.core.snn`` in PyTorch: LIF neurons
+with an ATan surrogate gradient, conv/BN/dense/pool helpers, and the
+paper's backbone (4× [conv→BN→LIF→maxpool] → FC512 → LIF → FC, rate
+decoding), in training (BN batch statistics) and evaluation.
 
 Params and state are plain dicts of tensors with the reference's names,
 and the public functions keep its layouts (activations NHWC, conv weights
@@ -134,8 +134,39 @@ def bn_apply_eval(p: Params, s: State, x: torch.Tensor,
     return (x - s["mean"]) * torch.rsqrt(s["var"] + eps) * p["scale"] + p["bias"]
 
 
+def bn_apply(p: Params, s: State, x: torch.Tensor, *, train: bool,
+             momentum: float = 0.9, eps: float = 1e-5
+             ) -> tuple[torch.Tensor, State]:
+    """BatchNorm over all axes but the last (channels) → (y, new state).
+
+    In training it normalises by the batch mean and the biased variance
+    (the reference's ``jnp.var``) and moves the running statistics by
+    ``momentum·old + (1 − momentum)·batch`` (detached: the state is not
+    differentiated). ``F.batch_norm`` is not used: it updates the running
+    variance with the unbiased estimate, and its momentum weighs the
+    batch, not the old value."""
+    if not train:
+        return bn_apply_eval(p, s, x, eps), s
+    axes = tuple(range(x.dim() - 1))
+    mean = torch.mean(x, dim=axes)
+    var = torch.mean(torch.square(x - mean), dim=axes)
+    new_s = {"mean": momentum * s["mean"] + (1 - momentum) * mean.detach(),
+             "var": momentum * s["var"] + (1 - momentum) * var.detach()}
+    y = (x - mean) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    return y, new_s
+
+
 def max_pool(x: torch.Tensor, window: int = 2) -> torch.Tensor:
-    """x: [N, H, W, C] → non-overlapping window max pool (VALID)."""
+    """x: [N, H, W, C] → non-overlapping window max pool (VALID). Under
+    autograd the gradient goes to the first maximal element of each
+    window in row-major order (``F.max_pool2d``), as XLA's
+    ``reduce_window`` max routes it: ties are the rule on binary spikes
+    (an all-zero window too), and ``amax`` would split the gradient over
+    them. Without a gradient the window max is an ``amax``, the same
+    values in half the device time of ``max_pool2d`` on NHWC at the
+    physics eval's shape."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return F.max_pool2d(x.permute(0, 3, 1, 2), window).permute(0, 2, 3, 1)
     N, H, W, C = x.shape
     ho, wo = H // window, W // window
     x = x[:, :ho * window, :wo * window]
@@ -193,25 +224,48 @@ def spiking_cnn_init(gen: torch.Generator, cfg: SpikingCNNConfig
 
 
 def spiking_cnn_apply(params: Params, state: State, x: torch.Tensor,
-                      cfg: SpikingCNNConfig) -> torch.Tensor:
-    """Evaluation forward over time (the reference's ``train=False``).
+                      cfg: SpikingCNNConfig, *, train: bool
+                      ) -> tuple[torch.Tensor, State, dict]:
+    """Forward over time.
 
-    x: [B, T, H, W, C] → rate-decoded logits [B, n_classes].
+    x: [B, T, H, W, C] → (logits [B, n_classes], new BN state, aux):
+    ``aux["spikes/<layer>"]`` holds spike totals and
+    ``aux["synops/<layer>"]`` synaptic-operation counts (detached, for the
+    energy and bandwidth model), with the reference's keys and values.
+    With ``train`` BN normalises by batch statistics and the returned
+    state carries the moved running statistics; else the state is
+    returned as it came.
     """
     B, T = x.shape[0], x.shape[1]
+    aux: dict = {}
+    new_state: State = {}
     h = x.transpose(0, 1)                      # [T, B, ...]
     start = 1 if cfg.first_layer_external else 0
     for i in range(start, cfg.n_conv):
         stride = cfg.first_stride if i == 0 else 1
         y = conv_apply(params[f"conv{i}"], h.reshape((T * B,) + h.shape[2:]),
                        stride=stride)
-        y = bn_apply_eval(params[f"bn{i}"], state[f"bn{i}"], y)
+        # each output element consumed k·k·c_in inputs; count sparsity
+        c_in = h.shape[-1]
+        fan_in = cfg.kernel_size * cfg.kernel_size * c_in
+        aux[f"synops/conv{i}"] = (torch.sum(h != 0) * fan_in
+                                  * (cfg.channels[i] / c_in)).detach()
+        y, new_state[f"bn{i}"] = bn_apply(params[f"bn{i}"], state[f"bn{i}"],
+                                          y, train=train)
         s = lif_over_time(y.reshape((T, B) + y.shape[1:]), cfg.lif)
         tb = max_pool(s.reshape((T * B,) + s.shape[2:]))
         h = tb.reshape((T, B) + tb.shape[1:])
-    z = dense_apply(params["fc0"], h.reshape(T, B, -1))
+        aux[f"spikes/conv{i}"] = torch.sum(s).detach()
+    flat = h.reshape(T, B, -1)
+    z = dense_apply(params["fc0"], flat)
+    aux["synops/fc0"] = (torch.sum(flat != 0).float()
+                         * params["fc0"]["w"].shape[1])
     s = lif_over_time(z, cfg.lif)
-    return dense_apply(params["fc1"], s).mean(dim=0)
+    aux["spikes/fc0"] = torch.sum(s).detach()
+    logits_t = dense_apply(params["fc1"], s)
+    aux["synops/fc1"] = (torch.sum(s != 0).float()
+                         * params["fc1"]["w"].shape[1])
+    return logits_t.mean(dim=0), new_state, aux
 
 
 # ---------------------------------------------------------------------------

@@ -108,6 +108,18 @@ def params_from_jax(tree: dict, device: str | torch.device | None = None
     return tree_to(tree["params"], dev), tree_to(tree["bn_state"], dev)
 
 
+def opt_state_from_jax(tree: dict, device: str | torch.device | None = None
+                       ) -> dict:
+    """The reference optimizer's state (``adamw``: ``{"mu", "nu",
+    "step"}``, ``sgd``: ``{"mom", "step"}``; numpy or array-like leaves)
+    → the port's on ``device``: float32 moment trees and an int32 0-dim
+    ``step``, so a run can resume mid-way on either side."""
+    dev = resolve_device(device)
+    return {k: (torch.tensor(int(np.asarray(v)), dtype=torch.int32,
+                             device=dev) if k == "step" else tree_to(v, dev))
+            for k, v in tree.items()}
+
+
 def offline_forward(dep: Deployment, events: torch.Tensor) -> dict:
     """The deployment's offline batched forward on ``dep.device``.
 
@@ -125,8 +137,9 @@ def offline_forward(dep: Deployment, events: torch.Tensor) -> dict:
         tb = snn.max_pool(spikes.reshape((B * T,) + spikes.shape[2:]))
         pooled = tb.reshape((B, T) + tb.shape[1:])
         coarse = p2m_layer.coarsen_spikes(pooled, cfg.coarsen_group())
-        logits = snn.spiking_cnn_apply(dep.params["backbone"], dep.bn_state,
-                                       coarse, cfg.backbone)
+        logits, _, _ = snn.spiking_cnn_apply(
+            dep.params["backbone"], dep.bn_state, coarse, cfg.backbone,
+            train=False)
     return {"spikes": spikes, "v_pre": v_pre, "pooled": pooled,
             "coarse": coarse, "logits": logits}
 

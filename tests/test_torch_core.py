@@ -160,9 +160,12 @@ def test_spiking_cnn_apply_eval_matches_jax():
                                          ).astype(np.float32)
     want, _, _ = j_snn.spiking_cnn_apply(params, state, jnp.asarray(x), jcfg,
                                          train=False)
-    got = snn.spiking_cnn_apply(_tree(params), _tree(state),
-                                torch.from_numpy(x), tcfg)
+    got, got_state, _ = snn.spiking_cnn_apply(
+        _tree(params), _tree(state), torch.from_numpy(x), tcfg, train=False)
     _close(got, want)
+    for k in state:                       # eval hands the state back as is
+        for leaf in state[k]:
+            _close(got_state[k][leaf], state[k][leaf], rtol=0, atol=0)
 
 
 def test_spike_fn_atan_surrogate_gradient():

@@ -338,14 +338,90 @@ def test_cuda_lif_bit_exact_vs_plain(cuda_device, dtype, soft_reset, T, N,
     from repro_torch.kernels.lif import lif, ref as lif_ref
     x = torch.from_numpy((np.random.default_rng(T + N).standard_normal(
         (T, N)) * 1.5).astype(np.float32)).to(cuda_device, dtype)
-    n = lif.LAUNCHES["lif"]
+    before = dict(lif.LAUNCHES)
     got = lif.lif(x, tau=tau, v_th=1.0, soft_reset=soft_reset)
-    assert lif.LAUNCHES["lif"] == n + 1
+    route = lif.lif_route(x)
+    assert lif.LAUNCHES == {**before, route: before[route] + 1}
     want = lif_ref.lif_ref(x, tau=tau, v_th=1.0, soft_reset=soft_reset)
     torch.cuda.synchronize()
     assert got.dtype == dtype
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert 0 < float(got.float().sum()) < got.numel()
+
+
+def _offset_copy(t, nbytes):
+    """A contiguous copy of ``t`` starting ``nbytes`` past a 16-byte
+    boundary."""
+    k = nbytes // t.element_size()
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    base = (-buf.data_ptr() % 16) // t.element_size()
+    out = buf[base + k:base + k + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == nbytes
+    return out
+
+
+_F32, _BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,T,N,offset,lane", [
+    (_F32, 4, 524288, 0, 16),     # the backbone's largest call: wide lanes
+    (_BF16, 4, 524288, 0, 16),
+    (_F32, 16, 131072, 0, 8),     # fewer columns: narrower lanes
+    (_BF16, 16, 131072, 0, 4),
+    (_F32, 64, 16384, 0, 4),      # chip_smoke's second shape
+    (_BF16, 64, 16384, 0, 4),
+    (_F32, 300, 4096, 0, 4),      # long T, several chunks of loads
+    (_BF16, 300, 4096, 0, 4),
+    (_F32, 5, 262145, 0, 4),      # N odd
+    (_BF16, 5, 262145, 0, 2),     # bfloat16 rows off 4 bytes: one column
+    (_F32, 4, 524288, 4, 4),      # a view 4 bytes off the 16-byte grid
+    (_BF16, 4, 524288, 4, 4),
+    (_BF16, 3, 1001, 2, 2),       # bfloat16 2 bytes off
+])
+def test_cuda_lif_routes_bit_exact(cuda_device, dtype, T, N, offset, lane):
+    """Each lane width the wrapper picks, bit-exact with the plain version
+    under soft and hard reset, counted under its route."""
+    from repro_torch.kernels.lif import lif, ref as lif_ref
+    x = torch.from_numpy((np.random.default_rng(T + N).standard_normal(
+        (T, N)) * 1.5).astype(np.float32)).to(cuda_device, dtype)
+    if offset:
+        x = _offset_copy(x, offset)
+    assert lif.lif_lane(x) == lane
+    route = "lif" if lane >= 8 else "lif_narrow"
+    assert lif.lif_route(x) == route
+    for soft_reset in (True, False):
+        before = dict(lif.LAUNCHES)
+        got = lif.lif(x, soft_reset=soft_reset)
+        assert lif.LAUNCHES == {**before, route: before[route] + 1}
+        want = lif_ref.lif_ref(x, soft_reset=soft_reset)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        assert 0 < float(got.float().sum()) < got.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tau,mode", [(2.0, 0), (0.5, 0), (1.5, 1), (3.0, 1),
+                                      (3 * 2.0 ** -30, 2)])
+@pytest.mark.parametrize("scale,v_th", [(1.5, 1.0), (1e-38, 1e-38)])
+def test_cuda_lif_quotients_bit_exact(cuda_device, dtype, tau, mode, scale,
+                                      v_th):
+    """Every quotient rule — a multiply by 1/tau (tau 2, 0.5), Markstein's
+    step (1.5, 3) and the true division alone (3·2^-30, outside Markstein's
+    range, where the membrane overflows) — bit-exact with the plain
+    version's division, also where the inputs and the membrane are
+    subnormal (scale 1e-38)."""
+    from repro_torch.kernels.lif import lif, ref as lif_ref
+    assert lif.quotient_mode(float(torch.tensor(tau, dtype=dtype))) == mode
+    x = (torch.from_numpy((np.random.default_rng(7).standard_normal(
+        (6, 4096)) * 1.5).astype(np.float32)) * scale).to(cuda_device, dtype)
+    for soft_reset in (True, False):
+        got = lif.lif(x, tau=tau, v_th=v_th, soft_reset=soft_reset)
+        want = lif_ref.lif_ref(x, tau=tau, v_th=v_th, soft_reset=soft_reset)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -363,7 +439,7 @@ def test_cuda_lif_op_matches_snn(cuda_device):
 def test_cuda_lif_rejects_bad_inputs(cuda_device):
     from repro_torch.kernels.lif import lif
     x = torch.zeros((4, 8), device=cuda_device)
-    n = lif.LAUNCHES["lif"]
+    n = dict(lif.LAUNCHES)
     with pytest.raises(TypeError):
         lif.lif(x.half())
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -372,7 +448,7 @@ def test_cuda_lif_rejects_bad_inputs(cuda_device):
         lif.lif(torch.zeros((8, 4), device=cuda_device).t())
     with pytest.raises(ValueError, match=r"\[T, N\]"):
         lif.lif(x[None])
-    assert lif.LAUNCHES["lif"] == n
+    assert lif.LAUNCHES == n
 
 
 # ---------------------------------------------------------------------------

@@ -318,3 +318,80 @@ def test_kernel_quotient_is_the_true_division():
         t = _rn32_exact(Fraction(float(e)) * Fraction(float(r))
                         + Fraction(float(q)))
         assert t.view(np.uint32) == (vi / hs).view(np.uint32), vi
+
+
+def _lif_sweep() -> np.ndarray:
+    """float32 values for K4's quotient checks: signed zeros, both sides
+    of the subnormal boundary, subnormals, the 2^±100 switches of
+    Markstein's range, and a seeded sample of bit patterns over every
+    finite magnitude."""
+    f32 = np.float32
+    edge = [f32(0), f32(-0.0), f32(1e-45), f32(-1e-45), f32(3e-39),
+            f32(2.0 ** -126), f32(2.0 ** -100), f32(2.0 ** 100), f32(1),
+            f32(-1), f32(3.4e38), f32(-3.4e38)]
+    for m in (f32(2.0 ** -126), f32(2.0 ** -100), f32(2.0 ** 100)):
+        edge += [np.nextafter(m, f32(0)), np.nextafter(m, f32(np.inf))]
+    rng = np.random.default_rng(17)
+    bits = rng.integers(0, 0x7f800000, 4000, dtype=np.uint32)
+    sample = bits.view(np.float32) * rng.choice([-1, 1], 4000).astype(f32)
+    small = rng.uniform(-4, 4, 1000).astype(f32)
+    return np.concatenate([np.array(edge, f32), sample, small])
+
+
+@pytest.mark.parametrize("tau", [2.0, 4.0, 0.5, 1.0, 2.0 ** -3, 2.0 ** 10])
+def test_lif_quotient_power_of_two_tau_is_a_multiply(tau):
+    """K4's quotient rule for a power-of-two tau: x · (1/tau) rounds the
+    same real number as x / tau, so the two agree in every bit over the
+    sweep, subnormal inputs and results included."""
+    from repro_torch.kernels.lif.lif import quotient_mode
+    assert quotient_mode(tau) == 0
+    x = _lif_sweep()
+    with np.errstate(over="ignore", under="ignore"):
+        got = x * np.float32(1.0 / tau)
+        want = x / np.float32(tau)
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("tau", [1.5, 3.0, 0.7, 1000.0])
+def test_lif_quotient_markstein_is_the_true_division(tau):
+    """K4's quotient for tau not a power of two (Markstein's step from r
+    = RN(1/tau) where 2^-100 ≤ |d| < 2^100 or d = 0, the true division
+    elsewhere), emulated as the kernel computes it, equals float32 true
+    division in every bit over the sweep."""
+    from repro_torch.kernels.lif.lif import quotient_mode
+    assert quotient_mode(tau) == 1
+    t, r = np.float32(tau), np.float32(1.0) / np.float32(tau)
+    d = _lif_sweep()
+    with np.errstate(over="ignore", under="ignore", invalid="ignore"):
+        q = d * r
+        e = _fma32(-q, np.full_like(d, t), d)
+        mark = np.copysign(_fma32(e, np.full_like(d, r), q), d)
+        want = d / t
+    a = np.abs(d)
+    fast = (a == 0) | ((a >= np.float32(2.0 ** -100))
+                       & (a < np.float32(2.0 ** 100)))
+    got = np.where(fast, mark, want)
+    assert fast.sum() > 1000
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_lif_quotient_mode_and_lanes():
+    """quotient_mode: a multiply only where 1/tau is a normal float32
+    power of two, Markstein's step within [2^-20, 2^20], else the true
+    division. lif_lane: the widest lane the layout and thread count allow
+    (MIN_THREADS), one element for bfloat16 rows off the 4-byte grid."""
+    from repro_torch.kernels.lif import lif
+    assert [lif.quotient_mode(t) for t in
+            (2.0, 2.0 ** 126, 2.0 ** 127, 2.0 ** -127, 1.5, 2.0 ** 21 * 3,
+             -2.0, 0.0, float("inf"))] == [0, 0, 2, 0, 1, 2, 2, 2, 2]
+    f32 = torch.zeros((4, 524288))
+    assert lif.lif_lane(f32) == 16 and lif.lif_route(f32) == "lif"
+    assert lif.lif_lane(torch.zeros((16, 131072))) == 8
+    assert lif.lif_lane(torch.zeros((64, 16384))) == 4
+    assert lif.lif_route(torch.zeros((64, 16384))) == "lif_narrow"
+    assert lif.lif_lane(torch.zeros((5, 262145))) == 4
+    bf = torch.zeros((5, 262145), dtype=torch.bfloat16)
+    assert lif.lif_lane(bf) == 2
+    assert lif.lif_lane(torch.zeros((4, 524289))[:, 1:].contiguous()) == 16
+    view = torch.zeros(4 * 524288 + 1)[1:].view(4, 524288)
+    assert view.data_ptr() % 16 == 4 and lif.lif_lane(view) == 4

@@ -348,10 +348,12 @@ def test_make_eval_fn_matches_jax(reduced_model, mode):
 
 
 def test_model_apply_refuses_training(reduced_model):
+    """Training runs through curvefit (tests/test_torch_train.py); layer
+    1 in kernel mode has no backward, so under autograd it is refused."""
     tree, ev, _ = reduced_model
     _, tcfg = _reduced_pair("kernel")
     params, state = params_from_jax(tree, device="cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="no backward"):
         codesign.model_apply(params, state, torch.from_numpy(ev), tcfg,
                              train=True)
 
