@@ -63,10 +63,20 @@ no ``ok`` line):
                 one step under torch.profiler), no kernel launched, layer 1
                 bit-identical over the frozen steps; the trained params
                 evaluated in kernel and scan mode, logits equal;
+  6c. sweep   — the co-design sweep at full width (``phase_sweep``:
+                fast grid, both protocols, steps cut, widths not), no
+                kernel launched, its p2m-codesign-sweep/v3 artifact
+                checked, per cell the step time and its host sampling
+                share, eval seconds, peak memory, one profiled step;
+      deploy  — the frozen 10 ms record deployed, reloaded against the
+                artifact and served to the recorded streams through K3
+                and K2 (counters zeroed before and read after each), the
+                serving artifact through tools/check_stream_stats.py;
   7. physics parity — the reduced() model evaluated in kernel mode on
                 cuda and on the CPU from the same seeded batch; then 3
                 train steps at reduced() on cuda and on the CPU (loss,
-                gnorm and params within TRAIN_RTOL);
+                gnorm and params within TRAIN_RTOL); then the sweep at
+                reduced() on both (``phase_sweep_parity``);
   8. lm       — LM request serving at full published width
                 (internlm2-1.8b through the flash-attention kernel,
                 mamba2-780m through the SSD kernel; serving numerics, bf16,
@@ -1247,6 +1257,372 @@ def phase_train_parity(torch) -> dict:
     return {"rel": worst, "params": leaf_worst}
 
 
+SWEEP_STEPS = dict(batch_size=4, pretrain_steps=2, finetune_steps=2,
+                   eval_batches=1)      # step counts cut; widths are not
+# the sweep on cuda vs the CPU at reduced(): records' bandwidth, sensor
+# energy and retention relative, and the backend energies of one eval of
+# the same trained params; the records' backend energies (which read the
+# backbone's spike counts, moved by a few roundoff-trained weights) and
+# the trained params are held as tests/sweep_parity.py says
+SWEEP_RTOL = 1e-5
+SWEEP_RECORD_KEYS = (
+    "label", "circuit", "null_mismatch", "protocol", "t_intg_ms", "n_sub",
+    "variant", "accuracy", "train_time_s", "train_time_per_step_s",
+    "bandwidth_ratio", "backend_energy_conventional_j",
+    "backend_energy_p2m_j", "sensor_energy_p2m_j", "layer1_spikes",
+    "input_events", "retention_err_v", "retention_surface_v",
+    "bandwidth_norm", "train_time_norm", "energy_improvement")
+
+
+def awake_init(codesign):
+    """``codesign.model_init`` with ``awake`` applied, so the sweep's fresh
+    seeded weights keep spikes flowing to the head as ``[train]``'s do;
+    returns the original to restore."""
+    init = codesign.model_init
+
+    def woken(gen, cfg):
+        params, state = init(gen, cfg)
+        return awake(params), state
+
+    codesign.model_init = woken
+    return init
+
+
+def check_sweep_artifact(art: dict, labels: list, n_records: int) -> None:
+    """The merged ``p2m-codesign-sweep/v3`` artifact: schema, protocols,
+    labels, the records in the reference's order with every key of
+    docs/sweep.md's schema, all values finite; it dumps as JSON."""
+    import math
+    json.dumps(art)
+    if art["schema"] != "p2m-codesign-sweep/v3":
+        fail(f"sweep artifact schema {art['schema']!r}")
+    if art["protocols"] != ["frozen", "unfrozen"]:
+        fail(f"sweep artifact protocols {art['protocols']}")
+    if art["grid"]["labels"] != labels:
+        fail(f"sweep artifact labels {art['grid']['labels']}")
+    order = [(p, t, lab) for p in ("frozen", "unfrozen")
+             for t in art["grid"]["t_intg_grid_ms"] for lab in labels]
+    got = [(r["protocol"], r["t_intg_ms"], r["label"])
+           for r in art["records"]]
+    if len(got) != n_records or got != order:
+        fail(f"sweep records {got}, expected {order}")
+
+    def finite(v):
+        if isinstance(v, dict):
+            return all(finite(x) for x in v.values())
+        if isinstance(v, list):
+            return all(finite(x) for x in v)
+        return not isinstance(v, float) or math.isfinite(v)
+
+    for r in art["records"]:
+        missing = [k for k in SWEEP_RECORD_KEYS if k not in r]
+        if missing or not finite(r):
+            fail(f"sweep record {r['label']} {r['t_intg_ms']}: missing "
+                 f"{missing} or a non-finite value")
+    if not finite(art["retention"]):
+        fail("sweep artifact retention is not finite")
+
+
+def phase_sweep(torch, counters, events, labels) -> dict:
+    """The co-design sweep at full width: configs/p2m_dvs CONFIG and DATA,
+    fresh seeded weights (``awake``), ``fast_grid()`` (circuits a, b,
+    c@m=0.06 × T_INTG 10 and 1000 ms), both protocols off one pretrain,
+    ``keep_params=True``, every kernel counter set to 0 before and read
+    after (the sweep trains and evaluates through the curve-fit forward:
+    no kernel). Per protocol and cell: the record's train time per step,
+    the eval and ``sample_batch`` host seconds, peak device memory, and
+    one finetune step on the physics batch (10 ms) or a fresh one
+    (1000 ms) under torch.profiler. Writes and checks the merged
+    artifact."""
+    from dataclasses import replace
+    from repro_torch.configs import p2m_dvs
+    from repro_torch.core import codesign, sweep
+    from repro_torch.data import events as ev_mod
+    from repro_torch.optim import adamw
+    cfg = p2m_dvs.CONFIG
+    grid = sweep.fast_grid()
+    scfg = codesign.SweepConfig(t_intg_grid_ms=grid.t_intg_grid_ms,
+                                **SWEEP_STEPS)
+    print(f"[sweep] {cfg.backbone.input_hw} input, {cfg.p2m.out_channels} "
+          f"in-pixel filters, n_sub {cfg.p2m.n_sub}, backbone "
+          f"{cfg.backbone.channels} fc {cfg.backbone.fc_hidden}, "
+          f"{p2m_dvs.DATA.duration_ms:g} ms streams; fast grid "
+          f"{[c.value for c in grid.circuits]} x {grid.t_intg_grid_ms} ms; "
+          f"cut: steps only, {SWEEP_STEPS}")
+    init = awake_init(codesign)
+    zero(counters)
+    t0 = time.perf_counter()
+    try:
+        results = sweep.run_protocols(p2m_dvs.DATA, cfg, scfg, grid,
+                                      protocols=("frozen", "unfrozen"),
+                                      keep_params=True, device="cuda",
+                                      log=lambda m: print(f"  {m}"))
+    finally:
+        codesign.model_init = init
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = read(counters)
+    if any(launched.values()):
+        fail(f"the sweep launched kernels: {launched}")
+    labels_g = list(results["frozen"].labels)
+    for proto, res in results.items():
+        for (t_ms, ns), tm in res.timings.items():
+            rec = next(r for r in res.records if r["t_intg_ms"] == t_ms)
+            print(f"[sweep] {proto} T_INTG {t_ms:g} ms: train "
+                  f"{rec['train_time_per_step_s'] * 1e3:.1f} ms/step (host "
+                  f"clock, {scfg.finetune_steps} steps of "
+                  f"{len(labels_g)} variants), of which sample_batch "
+                  f"{tm['train_sample_s'] / scfg.finetune_steps * 1e3:.1f} "
+                  f"ms/step on the host; eval {tm['eval_s']:.3f} s "
+                  f"(sample_batch {tm['eval_sample_s']:.3f} s); peak device "
+                  f"memory {tm['peak_bytes'] / 2 ** 30:.2f} GiB")
+        peak = max(tm["peak_bytes"] for tm in res.timings.values())
+        print(f"[sweep] {proto}: peak device memory {peak / 2 ** 30:.2f} GiB "
+              f"(max_memory_allocated over its cells)")
+    art = sweep.protocols_artifact(results, extra_meta={"wall_s": wall})
+    out = ROOT / "build" / "chip_smoke" / "codesign_grid_fast.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(art, indent=2))
+    check_sweep_artifact(json.loads(out.read_text()), labels_g, 12)
+    for r in art["records"]:
+        print(f"[sweep] {r['protocol']:8s} {r['label']:9s} "
+              f"{r['t_intg_ms']:6g} ms: acc {r['accuracy']:.3f} bw "
+              f"{r['bandwidth_norm']:.3f}x energy "
+              f"{r['energy_improvement']:.3f}x "
+              f"retention {r['retention_err_v'] * 1e3:.2f} mV")
+    print(f"[sweep] artifact {out.relative_to(ROOT)}: 12 records, schema, "
+          f"labels {labels_g}, keys and values checked; wall {wall:.1f} s, "
+          f"no kernel launched")
+
+    # one finetune step per protocol and cell under the profiler
+    ev_1000, lab_1000 = ev_mod.sample_batch(torch.Generator().manual_seed(3),
+                                            p2m_dvs.DATA, len(labels), 1000.0,
+                                            cfg.p2m.n_sub)
+    batches = {10.0: (events, labels), 1000.0: (ev_1000, lab_1000)}
+    opt = adamw(scfg.lr)
+    leak_cfgs = sweep.expand_leak_configs(grid, cfg.p2m.leak)
+    for proto, res in results.items():
+        o = (sweep.joint_optimizer(opt, opt) if proto == "unfrozen" else opt)
+        for (t_ms, ns), fp in res.final_params.items():
+            cfg_t = replace(cfg, p2m=replace(cfg.p2m, t_intg_ms=t_ms,
+                                             n_sub=ns))
+            step = sweep.make_batched_finetune_step(
+                cfg_t, leak_cfgs, o, protocol=proto, device="cuda")
+            trained = ({"p2m": fp["p2m"], "backbone": fp["backbone"]}
+                       if proto == "unfrozen" else fp["backbone"])
+            ostate = sweep._map_cfgs(o.init, trained)
+            ev, lab = batches[t_ms]
+            args = (fp["p2m"], fp["backbone"], ostate, fp["state"], ev, lab)
+            step(*args)                       # allocations, cuDNN choice
+            profile_eval(torch, step, args, top=5, tag="sweep",
+                         what=f"one {proto} finetune step at T_INTG "
+                              f"{t_ms:g} ms ({len(leak_cfgs)} variants)")
+    del batches, ev_1000
+    torch.cuda.empty_cache()
+    return {"results": results, "artifact": art, "path": out}
+
+
+def phase_deploy(torch, sf, sweep_out: dict, src) -> dict:
+    """Deploy from the full-width sweep: ``select_record`` per protocol at
+    T_INTG 10 ms, ``deploy_from_sweep`` → ``load_deployment(...,
+    artifact=)`` on cuda; the frozen checkpoint serves the 16 recorded
+    synthetic-gesture streams through the MAC fold (K3) and then the
+    deposit fold (K2), counters set to 0 before and read after each; the
+    readouts agree; the serving artifact passes
+    tools/check_stream_stats.py."""
+    import numpy as np
+    from repro_torch.configs import p2m_dvs
+    from repro_torch.stream import deploy
+    from repro_torch.stream.engine import StreamEngine
+    results, art = sweep_out["results"], sweep_out["artifact"]
+    deps = {}
+    for proto, res in results.items():
+        rec = deploy.select_record(res.records, protocol=proto,
+                                   t_intg_ms=10.0)
+        ckpt = ROOT / "build" / "chip_smoke" / f"ckpt_{proto}"
+        deploy.deploy_from_sweep(res, p2m_dvs.CONFIG, rec, ckpt,
+                                 meta={"dataset": "synthetic-gesture"})
+        deps[proto] = deploy.load_deployment(ckpt, device="cuda",
+                                             artifact=sweep_out["path"])
+        print(f"[deploy] {proto}: {rec['label']} at {rec['t_intg_ms']:g} ms "
+              f"(acc {rec['accuracy']:.3f}) -> {ckpt.relative_to(ROOT)}, "
+              f"loaded against the artifact")
+    dep = deps["frozen"]
+    reports, launches = {}, {}
+    for mode, counter in (("mac", "fold_mac"), ("deposit", "fold")):
+        eng = StreamEngine(dep, capacity=N_LANES, fold_mode=mode,
+                           device="cuda")
+        rep, counts = serve_counted(torch, sf, eng, src, N_LANES)
+        expected = len(rep.fold_s) + 1                # + the warm-up fold
+        if len(rep.results) != N_LANES:
+            fail(f"deploy {mode}: {len(rep.results)} of {N_LANES} streams")
+        if not np.isfinite([r.logits for r in rep.results]).all():
+            fail(f"deploy {mode}: non-finite logits")
+        if counts[counter] != expected or sum(counts.values()) != expected:
+            fail(f"deploy {mode}: launches {counts}, expected {expected} of "
+                 f"{counter} and none of any other kernel")
+        thr = rep.to_artifact()["throughput"]
+        print(f"[deploy] frozen checkpoint, fold={mode}: {len(rep.results)} "
+              f"streams, {thr['events_per_s']:.0f} events/s, wall "
+              f"{rep.wall_s:.2f} s, launches {counts}")
+        reports[mode], launches[counter] = rep, counts[counter]
+    diff = check_logits([r.logits for r in reports["mac"].results],
+                        [r.logits for r in reports["deposit"].results],
+                        "deployed checkpoint fold=mac vs fold=deposit")
+    served = reports["deposit"].to_artifact()
+    served["data"] = {"dataset": "synthetic-gesture", "hw": HW,
+                      "n_classes": src.n_classes, "duration_ms": STREAM_MS}
+    path = ROOT / "build" / "chip_smoke" / "stream_serving_deployed.json"
+    path.write_text(json.dumps(served, indent=2, default=float))
+    gate = subprocess.run([sys.executable, str(ROOT / "tools" /
+                                               "check_stream_stats.py"),
+                           "--streams", str(N_LANES), str(path)],
+                          capture_output=True, text=True, timeout=120)
+    if gate.returncode != 0:
+        fail(f"check_stream_stats on the deployed serve: {gate.stdout}"
+             f"{gate.stderr}")
+    print(f"[deploy] fold=mac vs deposit max |logit diff| {diff:.3g}; "
+          f"{gate.stdout.strip()}")
+    print(f"[deploy] main-path launches: {launches}")
+    return launches
+
+
+def phase_sweep_parity(torch) -> None:
+    """The fast-grid sweep (both protocols) at reduced() on cuda and on the
+    CPU from the same seeded initial params and generator: accuracy,
+    spike counts and labels equal; bandwidth, sensor energy and retention
+    within SWEEP_RTOL; backend energies within COUNTER_RTOL, and within
+    SWEEP_RTOL (accuracy and spikes equal) when both devices evaluate the
+    CPU's trained params on one batch at 10 ms. Trained params as
+    tests/sweep_parity.py holds them: within TRAIN_RTOL of each leaf's
+    largest magnitude, but for the elements whose gradient is as small as
+    its roundoff (exact zeros under train-mode BN, measured from the CPU
+    run's constant channels, and the elements two more sound CPU runs
+    move), which Adam steps by about lr either way and are held to 2·lr
+    a step, at most MAX_MASKED_SHARE of all elements. Then three
+    planted faults on the card, each with the same batches, must fail the
+    params check, and their backend energies must read above
+    COUNTER_RTOL in both protocols: every update dropped (the state left
+    as pretrained), the warm-up step's update dropped, the last finetune
+    step's update dropped."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import sweep_parity as parity
+    from repro_torch.configs import p2m_dvs
+    from repro_torch.core import codesign, sweep
+    from repro_torch.stream.deploy import tree_to
+    cfg, data = p2m_dvs.reduced()
+    grid = sweep.fast_grid()
+    scfg = codesign.SweepConfig(t_intg_grid_ms=grid.t_intg_grid_ms,
+                                batch_size=2, pretrain_steps=2,
+                                finetune_steps=2, eval_batches=1)
+    steps = scfg.pretrain_steps + 1 + scfg.finetune_steps
+
+    def run(device, source=data):
+        return sweep.run_protocols(source, cfg, scfg, grid, device=device,
+                                   keep_params=True, log=lambda *_: None)
+
+    init = awake_init(codesign)
+    try:
+        cpu, masks = parity.cpu_reference(lambda src: run("cpu", src), data,
+                                          n_pre=scfg.pretrain_steps,
+                                          steps=1 + scfg.finetune_steps,
+                                          rtol=TRAIN_RTOL)
+        runs = {"cuda": run("cuda"), "cpu": cpu}
+        controls = {}
+        for name, calls in (("every update dropped", None),
+                            ("warm-up update dropped", [0]),
+                            ("last finetune update dropped",
+                             [scfg.finetune_steps])):
+            with parity.skip_updates(calls):
+                controls[name] = run("cuda")
+    finally:
+        codesign.model_init = init
+    worst = {"records": 0.0, "counters": 0.0}
+    for proto in ("frozen", "unfrozen"):
+        rc, rp = runs["cuda"][proto], runs["cpu"][proto]
+        for a, b in zip(rc.records, rp.records):
+            what = f"{proto} {b['label']} {b['t_intg_ms']:g} ms"
+            for k in ("label", "variant", "accuracy", "layer1_spikes",
+                      "input_events"):
+                if a[k] != b[k]:
+                    fail(f"sweep parity {what}: {k} cuda {a[k]} vs cpu "
+                         f"{b[k]}")
+            for k, lim, slot in (
+                    ("bandwidth_ratio", SWEEP_RTOL, "records"),
+                    ("sensor_energy_p2m_j", SWEEP_RTOL, "records"),
+                    ("retention_err_v", SWEEP_RTOL, "records"),
+                    ("backend_energy_conventional_j", parity.COUNTER_RTOL,
+                     "counters"),
+                    ("backend_energy_p2m_j", parity.COUNTER_RTOL,
+                     "counters")):
+                rel = abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                worst[slot] = max(worst[slot], rel)
+                if not rel <= lim:
+                    fail(f"sweep parity {what}: {k} cuda {a[k]} vs cpu "
+                         f"{b[k]} ({rel:.3g} > {lim:g})")
+    par = parity.compare_runs(runs["cuda"], cpu, masks, lr=scfg.lr,
+                              steps=steps, rtol=TRAIN_RTOL)
+    if par.failures:
+        fail("sweep parity params: " + "; ".join(par.failures[:5]))
+    for name, res in controls.items():
+        ctl = parity.compare_runs(res, cpu, masks, lr=scfg.lr, steps=steps,
+                                  rtol=TRAIN_RTOL)
+        reading = parity.energy_reading(res, cpu)
+        print(f"[sweep parity] control, {name}: params check fails "
+              f"({len(ctl.failures)} leaves, e.g. {ctl.failures[:1]}); "
+              f"backend energies max rel diff "
+              + ", ".join(f"{p} {r:.3g}" for p, r in reading.items())
+              + f" (limit {parity.COUNTER_RTOL:g})")
+        if not ctl.failures:
+            fail(f"sweep parity control '{name}' passed the params check")
+        if not min(reading.values()) > parity.COUNTER_RTOL:
+            fail(f"sweep parity control '{name}': backend energies within "
+                 f"COUNTER_RTOL {parity.COUNTER_RTOL:g} ({reading})")
+    # one eval of the same trained params on both devices
+    from dataclasses import replace
+    from repro_torch.core import energy
+    from repro_torch.data import events as ev_mod
+    from repro_torch.kernels import backend
+    ev, lab = ev_mod.sample_batch(torch.Generator().manual_seed(5), data, 2,
+                                  10.0, cfg.p2m.n_sub)
+    cfg_t = replace(cfg, p2m=replace(cfg.p2m, t_intg_ms=10.0))
+    lcs = sweep.expand_leak_configs(grid, cfg.p2m.leak)
+    for proto in ("frozen", "unfrozen"):
+        fp = runs["cpu"][proto].final_params[(10.0, cfg.p2m.n_sub)]
+        outs = {}
+        for d in ("cuda", "cpu"):
+            t = tree_to(fp, backend.resolve_device(d))
+            m, aux, l1 = sweep.make_batched_eval(cfg_t, lcs, proto, device=d)(
+                t["p2m"], t["backbone"], t["state"], ev, lab)
+            macs = float(l1["macs/p2m"])
+            outs[d] = [(float(m["acc"][g]), float(l1["spikes/p2m"][g]),
+                        energy.backend_energy_p2m(
+                            {k: float(aux[k][g]) for k in sorted(aux)},
+                            float(l1["spikes/p2m"][g]), macs),
+                        energy.backend_energy_conventional(
+                            {k: float(aux[k][g]) for k in sorted(aux)}, macs))
+                       for g in range(len(lcs))]
+        for (ac, sc, pc, cc), (ap, sp, pp, cp) in zip(outs["cuda"],
+                                                      outs["cpu"]):
+            if (ac, sc) != (ap, sp):
+                fail(f"sweep parity eval {proto}: acc/spikes cuda "
+                     f"{(ac, sc)} vs cpu {(ap, sp)}")
+            for a, b in ((pc, pp), (cc, cp)):
+                rel = abs(a - b) / max(abs(b), 1e-30)
+                worst["eval"] = max(worst.get("eval", 0.0), rel)
+                if not rel <= SWEEP_RTOL:
+                    fail(f"sweep parity eval {proto}: energy cuda {a} vs "
+                         f"cpu {b}")
+    print(f"[sweep parity] one eval of the CPU's trained params at 10 ms "
+          f"on both devices: accuracy and spikes equal, energies max rel "
+          f"diff {worst['eval']:.3g} (limit {SWEEP_RTOL:g})")
+    print(f"[sweep parity] reduced(), fast grid, both protocols, cuda vs "
+          f"cpu: accuracy, spikes and labels equal; bandwidth/sensor "
+          f"energy/retention max rel diff {worst['records']:.3g} (limit "
+          f"{SWEEP_RTOL:g}), backend energies {worst['counters']:.3g} "
+          f"(limit {parity.COUNTER_RTOL:g}), {par.summary()}")
+
+
 def measure_tree(torch) -> None:
     """``--measure-tree ROOT``: K1, the MAC-mode fold_chunk and K4 as the
     checkout at ROOT has them (its src/ first on the path, its kernels
@@ -1463,7 +1839,20 @@ def main() -> int:
                         (pc.LAUNCHES, lif.LAUNCHES, sf.LAUNCHES, fa.LAUNCHES,
                          sd.LAUNCHES))
     print(f"[train] phase {time.perf_counter() - t0:.1f} s")
+
+    # 6c. the co-design sweep at full width (both protocols), then
+    # deploying and serving a checkpoint that it trained
+    t0 = time.perf_counter()
+    sweep_out = phase_sweep(torch, (pc.LAUNCHES, lif.LAUNCHES, sf.LAUNCHES,
+                                    fa.LAUNCHES, sd.LAUNCHES),
+                            events, labels)
+    print(f"[sweep] phase {time.perf_counter() - t0:.1f} s")
     del events
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_deploy(torch, sf, sweep_out, src)
+    print(f"[deploy] phase {time.perf_counter() - t0:.1f} s")
+    del sweep_out
     torch.cuda.empty_cache()
 
     # 7. the physics eval on cuda and on the CPU, at reduced()
@@ -1473,6 +1862,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_train_parity(torch)
     print(f"[train parity] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_sweep_parity(torch)
+    print(f"[sweep parity] {time.perf_counter() - t0:.1f} s")
 
     # 8. LM request serving at full width, through K5 and K6
     counters = (sf.LAUNCHES, pc.LAUNCHES, lif.LAUNCHES, fa.LAUNCHES,

@@ -10,11 +10,13 @@ surrogate gradient; no hand-written kernel runs in a train step. Under
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
+from typing import Any
 
 import torch
 
 from repro_torch.core import p2m_layer, snn
+from repro_torch.core.leakage import CircuitConfig
 from repro_torch.core.p2m_layer import P2MConfig
 from repro_torch.core.snn import SpikingCNNConfig
 from repro_torch.kernels.backend import resolve_device
@@ -155,3 +157,66 @@ def make_eval_fn(cfg: P2MModelConfig, *,
                     "logits": logits}, aux
 
     return ev_fn
+
+
+# ---------------------------------------------------------------------------
+# the sweep (Table 1 / Fig 2)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class SweepConfig:
+    t_intg_grid_ms: tuple[float, ...] = (1.0, 10.0, 100.0, 1000.0)
+    batch_size: int = 8
+    pretrain_steps: int = 40
+    finetune_steps: int = 15
+    eval_batches: int = 4
+    lr: float = 2e-3
+    # layer-1 LR for the unfrozen joint update (sweep.joint_optimizer);
+    # None → ``lr``
+    lr_p2m: float | None = None
+    seed: int = 0
+    # dataset (data.sources.resolve_dataset) used when run_sweep is given
+    # no source
+    dataset: str = "synthetic-gesture"
+    data_root: str | None = None
+
+
+def run_sweep(data_cfg: Any = None,
+              model_cfg: P2MModelConfig | None = None,
+              sweep: SweepConfig = SweepConfig(),
+              circuit: CircuitConfig = CircuitConfig.NULLIFIED,
+              log: Any = print,
+              protocol: str = "frozen",
+              devices: int | None = None,
+              eval_data: Any = None,
+              device: str | torch.device | None = None) -> list[dict]:
+    """The co-design T_INTG sweep for one circuit config on ``device``
+    (cuda unless the caller asks for the CPU): one record per grid point
+    with accuracy, train time, bandwidth and backend energies. A
+    single-circuit wrapper over ``core.sweep.run_grid``, whose stacked
+    config axis here has length 1. ``data_cfg=None`` resolves
+    ``sweep.dataset`` at the backbone's input resolution; ``devices``
+    other than 1 raise (one card)."""
+    from repro_torch.core import sweep as sweep_engine
+    from repro_torch.core.sweep_exec import make_executor
+    from repro_torch.data import sources as sources_mod
+
+    if model_cfg is None:
+        model_cfg = P2MModelConfig()
+    if data_cfg is None:
+        data_cfg = sources_mod.resolve_dataset(
+            sweep.dataset, hw=model_cfg.backbone.input_hw[0],
+            data_root=sweep.data_root)
+    mcfg = replace(model_cfg,
+                   p2m=replace(model_cfg.p2m,
+                               leak=replace(model_cfg.p2m.leak,
+                                            circuit=circuit)))
+    make_executor(devices)
+    grid = sweep_engine.SweepGrid(
+        circuits=(circuit,),
+        t_intg_grid_ms=tuple(sweep.t_intg_grid_ms),
+        null_mismatch=(mcfg.p2m.leak.null_mismatch,))
+    result = sweep_engine.run_grid(data_cfg, mcfg, sweep, grid, log=log,
+                                   protocol=protocol,
+                                   eval_data=eval_data, device=device)
+    return result.records

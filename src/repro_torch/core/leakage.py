@@ -205,3 +205,29 @@ def leak_step(v: torch.Tensor, params: LeakParams, dt_ms: float
     """Integrate the leak ODE exactly over dt: V ← V_inf + (V - V_inf)e^{-dt/τ}."""
     a = decay_factor(params.tau_ms, dt_ms)
     return params.v_inf + (v - params.v_inf) * a
+
+
+def retention_error(params: LeakParams, v0: float | torch.Tensor,
+                    t_ms: float) -> torch.Tensor:
+    """|V(t) - V(0)| with no input drive (the Fig 4a experiment)."""
+    return torch.abs(leak_step(v0, params, t_ms) - v0)
+
+
+def retention_traces(w: torch.Tensor, cfgs: Sequence[LeakageConfig],
+                     ts_ms: Sequence[float], v0: float = 0.2
+                     ) -> torch.Tensor:
+    """Undriven voltage traces V(t) for each circuit config (Fig 4a):
+    ``[n_cfg, n_t, F]`` voltages starting from swing ``v0``. The
+    reference's ``vmap`` over ``ts_ms`` is a loop over them here."""
+    lk = stacked_leak_params(w, cfgs)
+    v0_t = torch.full_like(lk.v_inf, v0)
+    return torch.stack([leak_step(v0_t, lk, t) for t in ts_ms], dim=1)
+
+
+def retention_surface(w: torch.Tensor, cfgs: Sequence[LeakageConfig],
+                      t_grid_ms: Sequence[float], v0: float = 0.2
+                      ) -> torch.Tensor:
+    """Mean retention error |V(t)-V(0)| per (config, T_INTG): the
+    ``[n_cfg, n_t]`` surface the sweep artifact reports."""
+    traces = retention_traces(w, cfgs, t_grid_ms, v0)
+    return torch.mean(torch.abs(traces - v0), dim=-1)

@@ -26,6 +26,7 @@ from repro_torch.core.leakage import LeakageConfig
 from repro_torch.core.snn import conv_same as _conv  # noqa: F401
 from repro_torch.core.snn import spike_fn
 from repro_torch.kernels.p2m_conv import ops as p2m_ops
+from repro_torch.utils import tree_map
 
 Params = dict
 MODES = ("curvefit", "scan", "kernel")
@@ -271,10 +272,11 @@ def p2m_forward_curvefit_grouped(params_s: Params, events: torch.Tensor,
 
 
 def stack_p2m_params(params: Params, n_cfg: int) -> Params:
-    """Layer-1 params replicated onto a leading [n_cfg] config axis — the
-    start of the unfrozen phase-2 finetune (every config starts from the
-    shared pretrained kernel)."""
-    return {k: torch.stack([v] * n_cfg) for k, v in params.items()}
+    """Params replicated onto a leading [n_cfg] config axis — the start of
+    the unfrozen phase-2 finetune (every config starts from the shared
+    pretrained kernel); any dict tree of tensors, as the sweep stacks the
+    backbone and the BN state with it too."""
+    return tree_map(lambda v: torch.stack([v] * n_cfg), params)
 
 
 def coarsen_spikes(spikes: torch.Tensor, group: int) -> torch.Tensor:

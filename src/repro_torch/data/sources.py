@@ -1,10 +1,13 @@
-"""Event sources: the replay contract the serving engine consumes (the
-synthetic half of ``repro.data.sources``).
+"""Event sources: the contract the sweep engine and the serving engine
+consume (the synthetic half of ``repro.data.sources``).
 
-``source.iter_event_chunks(gen, chunk_us=..., slot_us=...)`` replays one
-labeled sample as a timestamped live stream of raw ``(t, x, y, p)`` chunks
-at the source's ``sensor_hw``; empty chunks are yielded too, so a replay
-consumer's clock advances through event gaps.
+Two seams: ``source.sample_batch(gen, batch_size, t_intg_ms, n_sub)``
+draws a training/eval batch, float32 events ``[B, n_slots, n_sub, H, W,
+2]`` and int64 labels ``[B]`` on the CPU (the caller moves them to its
+device); ``source.iter_event_chunks(gen, chunk_us=..., slot_us=...)``
+replays one labeled sample as a timestamped live stream of raw ``(t, x,
+y, p)`` chunks at the source's ``sensor_hw``; empty chunks are yielded
+too, so a replay consumer's clock advances through event gaps.
 """
 from __future__ import annotations
 
@@ -20,14 +23,18 @@ from repro_torch.data.formats import EventChunk
 
 DATASETS = ("synthetic-gesture", "synthetic-nmnist")
 FILE_BACKED = ("dvs128", "nmnist")
+# default stream duration per dataset (the reference's: real N-MNIST
+# recordings span about 300 ms)
 DATASET_DURATIONS_MS = {"synthetic-gesture": 2000.0,
-                        "synthetic-nmnist": 2000.0}
+                        "synthetic-nmnist": 2000.0,
+                        "dvs128": 2000.0,
+                        "nmnist": 300.0}
 
 
 class EventSource:
     """The engine-facing event-stream contract: ``name``, ``height``,
-    ``width``, ``n_classes``, ``duration_ms``, ``sensor_hw`` and the replay
-    entry point :meth:`iter_event_chunks`."""
+    ``width``, ``n_classes``, ``duration_ms``, ``sensor_hw``, the two batch
+    samplers and the replay entry point :meth:`iter_event_chunks`."""
     name: str
     height: int
     width: int
@@ -41,6 +48,20 @@ class EventSource:
             raise ValueError(f"T_INTG {t_intg_ms} ms does not divide the "
                              f"stream duration {self.duration_ms} ms")
         return int(round(n))
+
+    def sample_batch(self, gen: torch.Generator, batch_size: int,
+                     t_intg_ms: float, n_sub: int = 1
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(events [B, n_slots, n_sub, H, W, 2], labels [B]) on the CPU,
+        drawn from ``gen``."""
+        raise NotImplementedError
+
+    def sample_batch_with_labels(self, gen: torch.Generator,
+                                 labels: torch.Tensor, t_intg_ms: float,
+                                 n_sub: int = 1
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Events for given labels (class-conditional analysis)."""
+        raise NotImplementedError
 
     def iter_event_chunks(self, gen: torch.Generator, *, chunk_us: int,
                           slot_us: int | None = None
@@ -83,6 +104,14 @@ class SyntheticSource(EventSource):
         self.n_classes = cfg.n_classes
         self.duration_ms = cfg.duration_ms
 
+    def sample_batch(self, gen, batch_size, t_intg_ms, n_sub=1):
+        return events_mod.sample_batch(gen, self.cfg, batch_size, t_intg_ms,
+                                       n_sub=n_sub)
+
+    def sample_batch_with_labels(self, gen, labels, t_intg_ms, n_sub=1):
+        return events_mod.sample_batch_with_labels(gen, self.cfg, labels,
+                                                   t_intg_ms, n_sub=n_sub)
+
     def iter_event_chunks(self, gen, *, chunk_us, slot_us=None,
                           label: int | None = None):
         """Replay one synthetic sample: frames on the ``slot_us`` grid
@@ -107,9 +136,25 @@ class SyntheticSource(EventSource):
         return label, lazy()
 
 
-def resolve_dataset(name: str, *, hw: int = 16,
-                    duration_ms: float | None = None) -> EventSource:
-    """Dataset name → an :class:`EventSource` (``synthetic-*`` names)."""
+def as_source(data) -> EventSource:
+    """The engines' ``data_cfg`` argument: an :class:`EventSource` passes
+    through, a bare :class:`~repro_torch.data.events.EventStreamConfig` is
+    wrapped in :class:`SyntheticSource`."""
+    if isinstance(data, EventSource):
+        return data
+    if isinstance(data, events_mod.EventStreamConfig):
+        return SyntheticSource(data)
+    raise TypeError(f"expected EventSource or EventStreamConfig, "
+                    f"got {type(data).__name__}")
+
+
+def resolve_dataset(name: str, *, hw: int = 16, data_root: str | None = None,
+                    duration_ms: float | None = None, split: str = "train"
+                    ) -> EventSource:
+    """Dataset name → an :class:`EventSource` (``synthetic-*`` names).
+    ``duration_ms=None`` picks the dataset's default
+    (:data:`DATASET_DURATIONS_MS`); ``data_root`` and ``split`` belong to
+    the file-backed datasets, which raise."""
     if name in FILE_BACKED:
         raise NotImplementedError(
             f"dataset {name!r} is file-backed; the file-backed sources "
@@ -124,3 +169,13 @@ def resolve_dataset(name: str, *, hw: int = 16,
     base = (events_mod.dvs_gesture_like(hw) if name == "synthetic-gesture"
             else events_mod.nmnist_like(hw))
     return SyntheticSource(replace(base, duration_ms=duration_ms))
+
+
+def resolve_eval_dataset(name: str, **kwargs
+                         ) -> tuple[EventSource | None, str | None]:
+    """Held-out eval source: ``(None, None)`` for the synthetic datasets
+    (one generative stream, no split), as the reference returns; the
+    file-backed datasets raise, as :func:`resolve_dataset` does."""
+    if name not in FILE_BACKED:
+        return None, None
+    return resolve_dataset(name, split="val", **kwargs), "val"

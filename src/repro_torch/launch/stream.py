@@ -2,13 +2,28 @@
 synthetic event streams through one P²M deployment with continuous
 batching, and write the ``p2m-stream-serving/v5`` stats artifact.
 
-The deployment is ``--checkpoint DIR`` (a serving checkpoint written by
-either package) or a fresh, seeded one of ``--config full|reduced``
-(``configs/p2m_dvs``). It runs on ``--device`` (default ``cuda``; the
-kernels build into ``build/kernels/`` at first use).
+The deployment is one of:
+
+  * ``--checkpoint DIR``: a serving checkpoint written by either package;
+    ``--artifact PATH`` cross-checks it against the sweep artifact it was
+    deployed from;
+  * ``--config full|reduced``: a fresh, seeded deployment of
+    ``configs/p2m_dvs`` (untrained; serving speed needs no training);
+  * neither: a fast co-design sweep trains in process
+    (``stream.deploy.train_and_deploy``, ``keep_params=True``), deploys
+    the best record for ``--protocol`` (``--deploy-t-intg`` pins its
+    T_INTG) and serves it; ``--smoke`` cuts that sweep to the
+    reference's smoke scale (T grid 100 and 1000 ms, deployed at 100 ms).
+    ``--smoke`` defaults to the dvs128 fixture, which comes with a later
+    slice: pass ``--dataset synthetic-gesture``.
+
+It runs on ``--device`` (default ``cuda``; the kernels build into
+``build/kernels/`` at first use).
 
   python -m repro_torch.launch.stream --config full --streams 16 --capacity 16
   python -m repro_torch.launch.stream --device cpu --config reduced --streams 4
+  python -m repro_torch.launch.stream --smoke --dataset synthetic-gesture \\
+      --device cpu --streams 2 --capacity 2
 """
 from __future__ import annotations
 
@@ -27,14 +42,30 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--checkpoint", type=str, default=None,
                     help="serving checkpoint dir; omitted: a fresh seeded "
-                         "deployment of --config")
-    ap.add_argument("--config", choices=["full", "reduced"], default="full",
-                    help="configs/p2m_dvs: the paper's CONFIG or reduced()")
+                         "deployment of --config, or without --config a "
+                         "fast sweep trains and deploys one in process")
+    ap.add_argument("--artifact", type=str, default=None,
+                    help="sweep artifact JSON to cross-check the "
+                         "checkpoint against")
+    ap.add_argument("--config", choices=["full", "reduced"], default=None,
+                    help="configs/p2m_dvs: the paper's CONFIG or reduced(), "
+                         "as a fresh seeded deployment")
+    ap.add_argument("--protocol", choices=["frozen", "unfrozen"],
+                    default="frozen",
+                    help="phase-2 protocol to train and deploy when no "
+                         "--checkpoint or --config is given")
+    ap.add_argument("--deploy-t-intg", type=float, default=None,
+                    help="pin the deployed record's T_INTG (ms); default: "
+                         "best accuracy on the trained grid")
+    ap.add_argument("--hw", type=int, default=16,
+                    help="event-frame resolution of the trained deployment")
     ap.add_argument("--device", type=str, default="cuda",
                     help="cuda (default) or cpu")
-    ap.add_argument("--dataset", type=str, default="synthetic-gesture",
+    ap.add_argument("--dataset", type=str, default=None,
                     choices=["synthetic-gesture", "synthetic-nmnist",
-                             "dvs128", "nmnist"])
+                             "dvs128", "nmnist"],
+                    help="event source (default: dvs128 under --smoke, "
+                         "else synthetic-gesture)")
     ap.add_argument("--duration-ms", type=float, default=None,
                     help="stream duration (default: the config's DATA "
                          "duration, or 2000 ms with --checkpoint)")
@@ -60,7 +91,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--adapt", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--devices", type=int, default=None,
                     help=argparse.SUPPRESS)
-    ap.add_argument("--smoke", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--smoke", action="store_true",
+                    help="train and deploy at the reference's smoke scale")
     args = ap.parse_args(argv)
 
     if args.registry is not None:
@@ -69,23 +101,42 @@ def main(argv: list[str] | None = None) -> int:
         raise _later_slice("online adaptation (stream/adapt.py)")
     if args.devices not in (None, 1):
         raise _later_slice("lane sharding (stream/shard.py)")
-    if args.smoke:
-        raise _later_slice("train-and-deploy (the training slice)")
 
     from repro_torch.configs import p2m_dvs
     from repro_torch.data import sources
     from repro_torch.stream import deploy
     from repro_torch.stream.engine import StreamEngine
 
+    dataset = args.dataset or ("dvs128" if args.smoke
+                               else "synthetic-gesture")
+    if args.smoke and dataset in sources.FILE_BACKED:
+        raise _later_slice(f"the {dataset} fixture of --smoke "
+                           f"(data/fixtures.py, ROADMAP.md queue 1 item 6)")
+
+    out = Path(args.out)
     if args.checkpoint is not None:
-        dep = deploy.load_deployment(args.checkpoint, device=args.device)
+        dep = deploy.load_deployment(args.checkpoint, device=args.device,
+                                     artifact=args.artifact)
         duration = args.duration_ms
-    else:
+    elif args.config is not None and not args.smoke:
         cfg, data = ((p2m_dvs.CONFIG, p2m_dvs.DATA) if args.config == "full"
                      else p2m_dvs.reduced())
         dep = deploy.fresh_deployment(cfg, seed=args.seed, device=args.device)
         duration = args.duration_ms or data.duration_ms
-    source = sources.resolve_dataset(args.dataset,
+    else:
+        bundle = deploy.train_and_deploy(
+            out / "deploy", dataset=dataset, hw=args.hw,
+            protocols=(args.protocol,), smoke=args.smoke,
+            t_intg_grid_ms=(100.0, 1000.0) if args.smoke else None,
+            deploy_t_intg_ms=(args.deploy_t_intg if args.deploy_t_intg
+                              is not None else
+                              (100.0 if args.smoke else None)),
+            device=args.device)
+        dep = deploy.load_deployment(bundle["checkpoints"][args.protocol],
+                                     device=args.device,
+                                     artifact=bundle["artifact"])
+        duration = args.duration_ms
+    source = sources.resolve_dataset(dataset,
                                      hw=dep.model_cfg.backbone.input_hw[0],
                                      duration_ms=duration)
     engine = StreamEngine(dep, capacity=args.capacity,
@@ -96,12 +147,11 @@ def main(argv: list[str] | None = None) -> int:
                           max_pending=args.max_pending, log=print)
 
     art = report.to_artifact()
-    art["data"] = {"dataset": args.dataset, "hw": source.height,
+    art["data"] = {"dataset": dataset, "hw": source.height,
                    "n_classes": source.n_classes,
                    "duration_ms": source.duration_ms}
-    out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    path = out / f"stream_serving_{args.dataset}.json"
+    path = out / f"stream_serving_{dataset}.json"
     path.write_text(json.dumps(art, indent=2, default=float))
 
     lat, thr, adm = art["latency_ms"], art["throughput"], art["admission"]

@@ -1,16 +1,21 @@
-"""Servable deployments: model config + params + the record they serve
-(the serving half of ``repro.stream.deploy`` in PyTorch).
+"""Deployment handshake: sweep artifact + checkpoint → a servable model
+(``repro.stream.deploy`` in PyTorch, without the adaptation deltas).
 
-A deployment checkpoint is the reference's format (``checkpoint/store``
-with a self-describing ``extra`` block), so a checkpoint the JAX package
-wrote loads here unchanged. :func:`offline_forward` is the batched
-reference forward the online engine is held to.
+The ``p2m-codesign-sweep/v3`` artifact is the menu: :func:`select_record`
+picks the record to deploy. The checkpoint is the weights:
+:func:`deploy_from_sweep` slices the chosen variant out of a
+``keep_params=True`` grid run and writes one checkpoint whose ``extra``
+block embeds the record and the full model config, so
+:func:`load_deployment` rebuilds the :class:`Deployment` from it alone.
+Checkpoints are the reference's format (``checkpoint/store``), so either
+package loads what the other wrote. :func:`offline_forward` is the
+batched reference forward the online engine is held to.
 """
 from __future__ import annotations
 
 import hashlib
 import json
-from dataclasses import asdict, dataclass, field
+from dataclasses import asdict, dataclass, field, replace
 from pathlib import Path
 from typing import Any
 
@@ -18,13 +23,14 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import store
-from repro_torch.core import codesign, leakage, p2m_layer, snn
+from repro_torch.core import codesign, leakage, p2m_layer, snn, variant_grid
 from repro_torch.core.analog import AnalogConfig
 from repro_torch.core.codesign import P2MModelConfig
 from repro_torch.core.leakage import CircuitConfig, LeakageConfig
 from repro_torch.core.p2m_layer import P2MConfig
 from repro_torch.core.snn import LIFConfig, SpikingCNNConfig
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.utils import tree_map
 
 DEPLOY_SCHEMA = "p2m-stream-deploy/v1"
 
@@ -51,6 +57,18 @@ def model_config_from_dict(d: dict) -> P2MModelConfig:
         p2m=P2MConfig(**p2m, analog=analog_cfg, leak=LeakageConfig(**leak)),
         backbone=SpikingCNNConfig(**bb, lif=lif),
         coarse_window_ms=d["coarse_window_ms"])
+
+
+def leak_config_from_variant(variant: dict, base: LeakageConfig
+                             ) -> LeakageConfig:
+    """A record's ``"variant"`` dict → the LeakageConfig the serving path
+    runs; the record's resolved comparator threshold is pinned as the
+    variant's override."""
+    return replace(base,
+                   circuit=CircuitConfig(variant["circuit"]),
+                   null_mismatch=float(variant["null_mismatch"]),
+                   v_threshold=float(variant["v_threshold"]),
+                   sigma=float(variant.get("sigma") or 0.0))
 
 
 @dataclass
@@ -144,27 +162,6 @@ def offline_forward(dep: Deployment, events: torch.Tensor) -> dict:
             "coarse": coarse, "logits": logits}
 
 
-def _variant_label(lc: LeakageConfig) -> str:
-    """The reference's record label (circuit + one suffix per variant axis
-    off its default: mismatch on circuit (c), threshold override, sigma)."""
-    parts = [lc.circuit.value]
-    if lc.circuit == CircuitConfig.NULLIFIED:
-        parts.append(f"m={lc.null_mismatch:g}")
-    if lc.v_threshold is not None:
-        parts.append(f"vt={lc.v_threshold:g}")
-    if lc.sigma:
-        parts.append(f"s={lc.sigma:g}")
-    return "@".join(parts)
-
-
-def _variant_dict(lc: LeakageConfig, *, v_threshold_default: float,
-                  n_sub: int) -> dict:
-    """The reference's per-record ``"variant"`` dict."""
-    return {"circuit": lc.circuit.value, "null_mismatch": lc.null_mismatch,
-            "v_threshold": leakage.resolve_v_threshold(lc, v_threshold_default),
-            "sigma": lc.sigma, "n_sub": n_sub}
-
-
 def fresh_deployment(model_cfg: P2MModelConfig, *, seed: int = 0,
                      protocol: str = "frozen",
                      device: str | torch.device | None = None) -> Deployment:
@@ -176,12 +173,12 @@ def fresh_deployment(model_cfg: P2MModelConfig, *, seed: int = 0,
                                         model_cfg)
     lc = model_cfg.p2m.leak
     record = {
-        "label": _variant_label(lc),
+        "label": variant_grid.variant_label(lc),
         "t_intg_ms": model_cfg.p2m.t_intg_ms,
         "n_sub": model_cfg.p2m.n_sub,
-        "variant": _variant_dict(lc,
-                                 v_threshold_default=model_cfg.p2m.v_threshold,
-                                 n_sub=model_cfg.p2m.n_sub),
+        "variant": variant_grid.variant_dict(
+            lc, v_threshold_default=model_cfg.p2m.v_threshold,
+            n_sub=model_cfg.p2m.n_sub),
         "accuracy": None,
         "untrained": True,
     }
@@ -204,10 +201,14 @@ def save_deployment(directory: str | Path, dep: Deployment) -> Path:
 
 
 def load_deployment(directory: str | Path,
-                    device: str | torch.device | None = None) -> Deployment:
+                    device: str | torch.device | None = None, *,
+                    artifact: dict | str | Path | None = None) -> Deployment:
     """Rebuild a :class:`Deployment` from a serving checkpoint (written by
     either package) onto ``device``. Corrupt or inconsistent extras raise
-    ``ValueError`` instead of serving weights under the wrong numerics."""
+    ``ValueError`` instead of serving weights under the wrong numerics.
+    ``artifact`` cross-checks the checkpoint against the sweep artifact it
+    was deployed from: its record (label, protocol, T_INTG, n_sub) must be
+    there."""
     dev = resolve_device(device)
     tree, extra = store.load_checkpoint(directory)
     if extra.get("deploy_schema") != DEPLOY_SCHEMA:
@@ -240,9 +241,26 @@ def load_deployment(directory: str | Path,
             f"record.variant.circuit={variant['circuit']!r} but "
             f"model_config pins {model_cfg.p2m.leak.circuit.value!r}")
     params, bn_state = params_from_jax(tree, dev)
-    return Deployment(model_cfg=model_cfg, params=params, bn_state=bn_state,
-                      record=record, protocol=extra["protocol"],
-                      meta=dict(extra.get("registry_meta") or {}))
+    dep = Deployment(model_cfg=model_cfg, params=params, bn_state=bn_state,
+                     record=record, protocol=extra["protocol"],
+                     meta=dict(extra.get("registry_meta") or {}))
+    if artifact is not None:
+        _check_against_artifact(dep, artifact)
+    return dep
+
+
+def _check_against_artifact(dep: Deployment,
+                            artifact: dict | str | Path) -> None:
+    if isinstance(artifact, (str, Path)):
+        artifact = json.loads(Path(artifact).read_text())
+    key = ("label", "protocol", "t_intg_ms", "n_sub")
+    want = tuple(dep.record.get(k) for k in key)
+    for r in artifact.get("records", []):
+        if tuple(r.get(k) for k in key) == want:
+            return
+    raise ValueError(
+        f"checkpoint record {dict(zip(key, want))} not found in the sweep "
+        f"artifact — the artifact and checkpoint are from different runs")
 
 
 def compat_digest(dep: Deployment) -> str:
@@ -253,3 +271,151 @@ def compat_digest(dep: Deployment) -> str:
     d["p2m"].pop("v_threshold", None)
     key = json.dumps(d, sort_keys=True, separators=(",", ":"), default=float)
     return hashlib.sha256(key.encode()).hexdigest()[:12]
+
+
+# ---------------------------------------------------------------------------
+# record selection and deploying from a sweep
+# ---------------------------------------------------------------------------
+
+def _record_sort_key(r: dict) -> tuple:
+    """Total order over sweep records: best accuracy first, then shortest
+    T_INTG, label, protocol, n_sub and the key-sorted variant dict. Every
+    component is a field of the record, never its position, so the same
+    artifact deploys the same record however its JSON was written."""
+    variant = r.get("variant") or {}
+    return (-(r.get("accuracy") or 0.0), r["t_intg_ms"],
+            str(r.get("label")), str(r.get("protocol")),
+            r.get("n_sub") or 0,
+            json.dumps(variant, sort_keys=True, default=float))
+
+
+def select_record(records: list[dict], *, protocol: str | None = None,
+                  t_intg_ms: float | None = None,
+                  label: str | None = None) -> dict:
+    """The record to deploy: filter by protocol / T_INTG / variant label,
+    then the first in :func:`_record_sort_key`'s order."""
+    pool = [r for r in records
+            if (protocol is None or r.get("protocol") == protocol)
+            and (t_intg_ms is None or r["t_intg_ms"] == t_intg_ms)
+            and (label is None or r["label"] == label)]
+    if not pool:
+        raise ValueError(
+            f"no sweep record matches protocol={protocol!r} "
+            f"t_intg_ms={t_intg_ms!r} label={label!r} "
+            f"({len(records)} records total)")
+    return min(pool, key=_record_sort_key)
+
+
+def select_from_artifact(artifact: dict | str | Path, **kwargs) -> dict:
+    """:func:`select_record` over a sweep-artifact dict or JSON path."""
+    if isinstance(artifact, (str, Path)):
+        artifact = json.loads(Path(artifact).read_text())
+    schema = artifact.get("schema", "")
+    if not str(schema).startswith("p2m-codesign-sweep/"):
+        raise ValueError(f"not a co-design sweep artifact "
+                         f"(schema={schema!r})")
+    return select_record(artifact["records"], **kwargs)
+
+
+def deploy_from_sweep(result: Any, model_cfg: P2MModelConfig, record: dict,
+                      directory: str | Path,
+                      meta: dict | None = None) -> Path:
+    """Slice ``record``'s variant out of a ``keep_params=True``
+    ``core.sweep.GridResult`` and write its serving checkpoint. Frozen
+    cells share one layer 1; unfrozen cells carry a per-variant layer 1,
+    sliced like the backbone. ``meta`` is kept as the checkpoint's
+    registry metadata."""
+    cell = (record["t_intg_ms"], record["n_sub"])
+    if cell not in result.final_params:
+        raise ValueError(
+            f"grid result holds no final params for cell {cell} — run the "
+            f"sweep with keep_params=True (cells kept: "
+            f"{sorted(result.final_params)})")
+    g = list(result.labels).index(record["label"])
+    fp = result.final_params[cell]
+
+    def take(tree):
+        return tree_map(lambda v: v[g], tree)
+
+    p2m_params = (take(fp["p2m"]) if result.protocol == "unfrozen"
+                  else fp["p2m"])
+    leak = leak_config_from_variant(record["variant"], model_cfg.p2m.leak)
+    cfg_cell = replace(model_cfg, p2m=replace(
+        model_cfg.p2m, t_intg_ms=record["t_intg_ms"],
+        n_sub=record["n_sub"], mode="curvefit", leak=leak))
+    dep = Deployment(model_cfg=cfg_cell,
+                     params={"p2m": p2m_params,
+                             "backbone": take(fp["backbone"])},
+                     bn_state=take(fp["state"]),
+                     record=record, protocol=result.protocol,
+                     meta=dict(meta or {}))
+    return save_deployment(directory, dep)
+
+
+def train_and_deploy(out_dir: str | Path, *,
+                     dataset: str = "synthetic-gesture",
+                     data_root: str | None = None, hw: int = 16,
+                     protocols: tuple[str, ...] = ("frozen",),
+                     t_intg_grid_ms: tuple[float, ...] | None = None,
+                     circuits: tuple[CircuitConfig, ...] | None = None,
+                     smoke: bool = False,
+                     deploy_t_intg_ms: float | None = None,
+                     log: Any = print,
+                     device: str | torch.device | None = None) -> dict:
+    """Run a fast-grid co-design sweep with ``keep_params=True`` on
+    ``device``, write the sweep artifact, and deploy the best record per
+    protocol as a serving checkpoint. Returns ``{"artifact": path,
+    "checkpoints": {protocol: dir}, "records": {protocol: record},
+    "results": {protocol: GridResult}, "source": train EventSource}``.
+    ``smoke`` cuts the step counts to the reference's smoke scale;
+    ``deploy_t_intg_ms`` pins the deployed record's integration time."""
+    from repro_torch.core import sweep as engine
+    from repro_torch.data import sources as sources_mod
+
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    data, model, sweep_cfg, grid = engine.paper_setup(
+        fast=True, hw=hw, dataset=dataset, data_root=data_root)
+    if smoke:
+        sweep_cfg = replace(sweep_cfg, batch_size=2, pretrain_steps=2,
+                            finetune_steps=1, eval_batches=1)
+    if t_intg_grid_ms is not None:
+        ok = set(engine.fit_t_grid(t_intg_grid_ms, data.duration_ms,
+                                   model.coarse_window_ms))
+        bad = [t for t in t_intg_grid_ms if t not in ok]
+        if bad:
+            raise ValueError(
+                f"T_INTG values {bad} do not divide the coarse window "
+                f"({model.coarse_window_ms:g} ms) and stream duration "
+                f"({data.duration_ms:g} ms)")
+        grid = replace(grid, t_intg_grid_ms=tuple(t_intg_grid_ms))
+    if circuits is not None:
+        grid = replace(grid, circuits=tuple(circuits))
+    eval_data, eval_split = sources_mod.resolve_eval_dataset(
+        dataset, hw=hw, data_root=data_root)
+    results = engine.run_protocols(data, model, sweep_cfg, grid,
+                                   protocols=protocols, log=log,
+                                   eval_data=eval_data, keep_params=True,
+                                   device=device)
+    artifact = engine.protocols_artifact(results, extra_meta={
+        "data": {"name": data.name, "dataset": dataset,
+                 "data_root": data_root, "hw": data.height,
+                 "n_classes": data.n_classes,
+                 "duration_ms": data.duration_ms,
+                 "eval_split": eval_split}})
+    artifact_path = out / "codesign_grid_deploy.json"
+    artifact_path.write_text(json.dumps(artifact, indent=2))
+    checkpoints: dict[str, Path] = {}
+    chosen: dict[str, dict] = {}
+    for proto, result in results.items():
+        rec = select_record(result.records, t_intg_ms=deploy_t_intg_ms)
+        ckpt_dir = out / f"ckpt_{proto}"
+        deploy_from_sweep(result, model, rec, ckpt_dir,
+                          meta={"dataset": dataset,
+                                "sensor_hw": list(data.sensor_hw)})
+        checkpoints[proto] = ckpt_dir
+        chosen[proto] = rec
+        log(f"[deploy] {proto}: {rec['label']} @ T={rec['t_intg_ms']:g}ms "
+            f"acc={rec['accuracy']:.3f} -> {ckpt_dir}")
+    return {"artifact": artifact_path, "checkpoints": checkpoints,
+            "records": chosen, "results": results, "source": data}

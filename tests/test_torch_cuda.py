@@ -645,3 +645,100 @@ def test_cuda_ssd_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="bad shapes"):
         ssd_mod.ssd_cuda(x, dt, A[:1], B, C)
     assert ssd_mod.LAUNCHES["ssd"] == n
+
+
+# ---------------------------------------------------------------------------
+# the co-design sweep and deploying from it
+# ---------------------------------------------------------------------------
+
+def _sweep_setup():
+    """The fast grid at reduced() with the smallest step counts."""
+    from repro_torch.configs import p2m_dvs
+    from repro_torch.core import codesign, sweep
+    cfg, data = p2m_dvs.reduced()
+    grid = sweep.fast_grid()
+    scfg = codesign.SweepConfig(t_intg_grid_ms=grid.t_intg_grid_ms,
+                                batch_size=2, pretrain_steps=2,
+                                finetune_steps=1, eval_batches=1)
+    return cfg, data, grid, scfg
+
+
+def _sweep_run(device, source=None):
+    """Both protocols on ``device`` from the seeded init."""
+    from repro_torch.core import sweep
+    cfg, data, grid, scfg = _sweep_setup()
+    return sweep.run_protocols(data if source is None else source, cfg,
+                               scfg, grid, device=device, keep_params=True,
+                               log=lambda *_: None)
+
+
+@pytest.mark.cuda
+def test_cuda_sweep_matches_cpu(cuda_device):
+    """The sweep on the card and on the CPU: accuracy, spikes and labels
+    equal; bandwidth, sensor energy and retention within 1e-5; backend
+    energies within sweep_parity.COUNTER_RTOL (the backbone's counts,
+    which roundoff-trained weights move); trained params as
+    tests/sweep_parity.py holds them (within 1e-4 of each leaf's largest
+    magnitude, but for the elements whose gradient is as small as its
+    roundoff, measured on the CPU runs, within 2·lr a step). A planted
+    fault, the card's
+    updates all dropped so its params stay as pretrained, must fail that
+    params check."""
+    import sweep_parity as sp
+    _, data, _, scfg = _sweep_setup()
+    steps = scfg.pretrain_steps + 1 + scfg.finetune_steps
+    cpu, masks = sp.cpu_reference(lambda src: _sweep_run("cpu", src), data,
+                                  n_pre=scfg.pretrain_steps,
+                                  steps=1 + scfg.finetune_steps, rtol=1e-4)
+    card = _sweep_run("cuda")
+    for proto in ("frozen", "unfrozen"):
+        rc, rp = card[proto], cpu[proto]
+        assert rc.labels == rp.labels
+        for a, b in zip(rc.records, rp.records):
+            for k in ("label", "variant", "accuracy", "layer1_spikes",
+                      "input_events"):
+                assert a[k] == b[k], (proto, b["label"], k)
+            for k, rel in (("bandwidth_ratio", 1e-5),
+                           ("sensor_energy_p2m_j", 1e-5),
+                           ("retention_err_v", 1e-5),
+                           ("backend_energy_conventional_j", sp.COUNTER_RTOL),
+                           ("backend_energy_p2m_j", sp.COUNTER_RTOL)):
+                np.testing.assert_allclose(a[k], b[k], rtol=rel)
+    par = sp.compare_runs(card, cpu, masks, lr=scfg.lr, steps=steps,
+                          rtol=1e-4)
+    assert not par.failures, par.failures
+    with sp.skip_updates(None):
+        frozen = _sweep_run("cuda")
+    assert sp.compare_runs(frozen, cpu, masks, lr=scfg.lr, steps=steps,
+                           rtol=1e-4).failures
+
+
+@pytest.mark.cuda
+def test_cuda_deploy_from_sweep_serves_as_the_plain_fold(cuda_device,
+                                                         tmp_path):
+    """A checkpoint of the card's sweep, served on the card through each
+    fold kernel (K2, K3) and on the CPU through the plain fold: the same
+    predictions and logits within 1e-4."""
+    from repro_torch.data import sources
+    from repro_torch.stream import deploy
+    from repro_torch.stream.engine import StreamEngine
+    cfg = _sweep_setup()[0]
+    res = _sweep_run("cuda")["frozen"]
+    rec = deploy.select_record(res.records, t_intg_ms=10.0)
+    deploy.deploy_from_sweep(res, cfg, rec, tmp_path / "ckpt")
+    src = sources.resolve_dataset("synthetic-gesture",
+                                  hw=cfg.backbone.input_hw[0],
+                                  duration_ms=1000.0)
+    logits = {}
+    for device, mode in (("cpu", "deposit"), ("cuda", "deposit"),
+                         ("cuda", "mac")):
+        dep = deploy.load_deployment(tmp_path / "ckpt", device=device)
+        rep = StreamEngine(dep, capacity=2, fold_mode=mode,
+                           device=device).serve(src, 3, seed=4)
+        logits[(device, mode)] = np.array(
+            [r.logits for r in sorted(rep.results,
+                                      key=lambda r: r.stream_id)])
+    want = logits[("cpu", "deposit")]
+    for key in (("cuda", "deposit"), ("cuda", "mac")):
+        np.testing.assert_allclose(logits[key], want, rtol=0, atol=1e-4,
+                                   err_msg=str(key))
