@@ -50,6 +50,23 @@ no ``ok`` line):
                 counters set to 0 before and read after each serve;
   5. parity   — the reduced() configuration served on cuda and on the CPU
                 from the same seeded streams;
+  5b. registry — circuits a and b beside the [slice] deployment (c) in one
+                registry, the 16 streams round-robin on 16 lanes through
+                K2 and through K3 (one launch per served entry per chunk,
+                counted), each stream bit-identical to the single-variant
+                serve of its entry; a hot-swap (b retired, b2 registered
+                mid-serve) and EntryTableFull rejections at max_entries=2,
+                the artifacts through tools/check_stream_stats.py
+                (``phase_registry``);
+  5c. adapt   — the [slice] deployment under benchmarks/stream_adapt.py's
+                leak drift, 16 adapting lanes (surrogate, lr_w 1.0) beside
+                the frozen engine: ms a window, peak memory, updates on
+                every lane; the most-updated lane harvested into a delta
+                checkpoint, applied, registered beside its base and served
+                through K3 and K2 (``phase_adapt``);
+  5d. registry and adapt parity — both at reduced() on cuda and on the CPU
+                from the same streams (``phase_registry_parity``,
+                ``phase_adapt_parity``);
   6. physics  — the full-width model evaluated on the physics batch with
                 ``make_eval_fn`` in kernel mode (the P²M conv kernel) and in
                 scan mode for each paper circuit, one kernel-mode eval under
@@ -92,6 +109,9 @@ no ``ok`` line):
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --only registry,adapt`` runs phases 1, 2, 4 and
+the named ones of 5b-5d, and prints no ``ok`` line.
 
 ``python3 chip_smoke.py --measure-tree ROOT`` runs none of this: it times
 K1, the MAC-mode fold_chunk and K4 as the checkout at ROOT has them (see
@@ -858,9 +878,10 @@ def phase_lm_parity(torch) -> None:
 class Prerecorded:
     """The synthetic source's streams drawn once, in stream-id order, with
     the generators the engine would give them, and replayed to every
-    serve: the engine opens streams in id order, so serve ``k``'s stream
-    ``i`` is recording ``i``. Drawing up front keeps event synthesis (host
-    work) out of the serving wall time."""
+    serve: each stream is found by its generator's seed, so stream ``i``
+    replays recording ``i`` whatever order the engine opens streams in
+    (a rejected stream is never opened). Drawing up front keeps event
+    synthesis (host work) out of the serving wall time."""
 
     def __init__(self, source, n_streams: int, seed: int, chunk_us: int,
                  slot_us: int, stream_generator):
@@ -868,21 +889,19 @@ class Prerecorded:
                      "sensor_hw"):
             setattr(self, attr, getattr(source, attr))
         self.n_slots = source.n_slots
-        self.recordings = []
+        self.recordings = {}
         for sid in range(n_streams):
+            gen = stream_generator(seed, sid)
+            key = gen.initial_seed()
             label, chunks = source.iter_event_chunks(
-                stream_generator(seed, sid), chunk_us=chunk_us,
-                slot_us=slot_us)
-            self.recordings.append((label, list(chunks)))
-        self._opened = 0
+                gen, chunk_us=chunk_us, slot_us=slot_us)
+            self.recordings[key] = (label, list(chunks))
 
     def replay(self) -> "Prerecorded":
-        self._opened = 0
         return self
 
     def iter_event_chunks(self, gen, *, chunk_us, slot_us=None):
-        label, chunks = self.recordings[self._opened]
-        self._opened += 1
+        label, chunks = self.recordings[gen.initial_seed()]
         return label, iter(chunks)
 
 
@@ -1623,6 +1642,457 @@ def phase_sweep_parity(torch) -> None:
           f"(limit {parity.COUNTER_RTOL:g}), {par.summary()}")
 
 
+# benchmarks/stream_adapt.py's injected drift: the nullifier's residual
+# mismatch grows ~6x and every filter's tau spreads log-normally
+ADAPT_DRIFT = {"null_mismatch": 0.35, "sigma": 0.3}
+# [adapt parity]: dw / dtheta on cuda vs the CPU, of the largest element
+# (the gradient pass runs cuDNN's convolutions against the CPU's)
+ADAPT_RTOL = 1e-4
+SWAP_WINDOW = 6           # [registry] hot-swap: b retired, b2 registered
+ONLY: set = set()         # --only: the phases of registry_and_adapt to run
+
+
+def expected_fold_launches(report, chunks_per_window: int) -> int:
+    """One fold launch per served entry per chunk (the distinct entries
+    bound to an active lane in each window), + the warm-up's one."""
+    windows: dict[int, set] = {}
+    for r in report.results:
+        for w in range(r.admitted_window, r.finished_window):
+            windows.setdefault(w, set()).add((r.entry, r.entry_uid))
+    return chunks_per_window * sum(map(len, windows.values())) + 1
+
+
+def stats_gate(art: dict, name: str, n_streams: int, src) -> str:
+    """Write ``art`` under build/chip_smoke/ and pass it through
+    tools/check_stream_stats.py; its summary line."""
+    art["data"] = {"dataset": "synthetic-gesture", "hw": src.height,
+                   "n_classes": src.n_classes,
+                   "duration_ms": src.duration_ms}
+    path = ROOT / "build" / "chip_smoke" / name
+    path.write_text(json.dumps(art, indent=2, default=float))
+    gate = subprocess.run([sys.executable, str(ROOT / "tools" /
+                                               "check_stream_stats.py"),
+                           "--streams", str(n_streams), str(path)],
+                          capture_output=True, text=True, timeout=120)
+    if gate.returncode != 0:
+        fail(f"check_stream_stats on {name}: {gate.stdout}{gate.stderr}")
+    return gate.stdout.strip()
+
+
+def circuit_deployments(torch, cfg, device: str, seeds: dict) -> dict:
+    """Fresh seeded (``awake``) deployments of ``cfg``, one per paper
+    circuit named in ``seeds`` (c at mismatch 0.06), each leak set through
+    ``leak_config_from_variant``: compat-equal, so one registry co-serves
+    them."""
+    from dataclasses import replace
+    from repro_torch.stream import deploy
+    out = {}
+    for name, (circuit, seed) in seeds.items():
+        leak = deploy.leak_config_from_variant(
+            {"circuit": circuit, "null_mismatch": 0.06,
+             "v_threshold": cfg.p2m.v_threshold, "sigma": 0.0},
+            cfg.p2m.leak)
+        d = deploy.fresh_deployment(replace(cfg, p2m=replace(cfg.p2m,
+                                                              leak=leak)),
+                                    seed=seed, device=device)
+        awake(d.params)
+        out[name] = d
+    return out
+
+
+def serve_line(rep) -> str:
+    art = rep.to_artifact()
+    lat, thr = art["latency_ms"], art["throughput"]
+    return (f"{thr['events_per_s']:.0f} events/s, readout p50 "
+            f"{lat['readout_p50']:.3f} ms p99 {lat['readout_p99']:.3f} ms, "
+            f"wall {rep.wall_s:.2f} s")
+
+
+def check_bit_identical(rep, singles: dict, what: str) -> int:
+    """Every stream of ``rep`` bit-identical to the single-variant serve
+    of its entry (``singles``: entry name → report); the count checked."""
+    import numpy as np
+    by = {n: {r.stream_id: r for r in s.results} for n, s in singles.items()}
+    n = 0
+    for r in rep.results:
+        if r.entry not in by:
+            continue
+        want = by[r.entry][r.stream_id]
+        if not np.array_equal(np.asarray(r.logits), np.asarray(want.logits)):
+            fail(f"{what}: stream {r.stream_id} on {r.entry} differs from "
+                 f"its single-variant serve by "
+                 f"{np.abs(np.subtract(r.logits, want.logits)).max()}")
+        n += 1
+    return n
+
+
+def phase_registry(torch, sf, dep_c, src, singles_c: dict) -> dict:
+    """Multi-variant serving at full width: circuits a and b (fresh,
+    seeded) beside the [slice] deployment (circuit c at mismatch 0.06) in
+    one registry; the 16 recorded streams requested round-robin a/b/c on
+    16 lanes, once through K2 and once through K3, counters zeroed before
+    and read after each serve (one launch per served entry per chunk);
+    every stream bit-identical to the single-variant serve of its entry
+    (c's are the [slice] serves); a hot-swap (b retired, b2 registered at
+    window SWAP_WINDOW while the streams trickle in one a window) leaving
+    every other lane bit-identical; EntryTableFull rejections at
+    max_entries=2; the artifacts through tools/check_stream_stats.py."""
+    import numpy as np
+    from repro_torch.configs import p2m_dvs
+    from repro_torch.stream.engine import StreamEngine
+    from repro_torch.stream.registry import Registry
+    deps = {**circuit_deployments(torch, p2m_dvs.CONFIG, "cuda",
+                                  {"a": ("a", 1), "b": ("b", 2)}),
+            "c": dep_c}
+    names = ("a", "b", "c")
+    variants = [names[i % 3] for i in range(N_LANES)]
+    counters = {"deposit": "fold", "mac": "fold_mac"}
+    singles = {"deposit": {"c": singles_c["deposit"]},
+               "mac": {"c": singles_c["mac"]}}
+    out = {}
+    for mode, counter in counters.items():
+        for name in ("a", "b"):
+            eng = StreamEngine(deps[name], capacity=N_LANES, fold_mode=mode,
+                               device="cuda")
+            singles[mode][name] = serve_counted(torch, sf, eng, src,
+                                                N_LANES)[0]
+        reg = Registry()
+        for name in names:
+            reg.register(name, deps[name])
+        eng = StreamEngine(reg, capacity=N_LANES, fold_mode=mode,
+                           device="cuda")
+        zero((sf.LAUNCHES,))
+        rep = eng.serve(src.replay(), N_LANES, seed=0, variants=variants)
+        torch.cuda.synchronize()
+        counts = dict(sf.LAUNCHES)
+        expected = expected_fold_launches(rep, eng.chunks_per_window)
+        if counts[counter] != expected or sum(counts.values()) != expected:
+            fail(f"registry {mode}: launches {counts}, expected {expected} "
+                 f"of {counter} (chunks x served entries + the warm-up) "
+                 f"and none of any other kernel")
+        if len(rep.results) != N_LANES or not np.isfinite(
+                [r.logits for r in rep.results]).all():
+            fail(f"registry {mode}: {len(rep.results)} of {N_LANES} "
+                 f"streams, or non-finite logits")
+        n = check_bit_identical(rep, singles[mode], f"registry {mode}")
+        vac = float(np.abs([r.logits for r in rep.results]).max())
+        if not vac > 0.05:
+            fail(f"registry {mode}: the heads never spiked (max |logit| "
+                 f"{vac}), the comparison would be vacuous")
+        print(f"[registry] fold={mode}, 3 entries round-robin on "
+              f"{N_LANES} lanes: {serve_line(rep)}, launches {counts} "
+              f"(expected {expected}); {n} streams bit-identical to their "
+              f"entry's single-variant serve")
+        for name in names:
+            print(f"[registry]   single {name} fold={mode}: "
+                  f"{serve_line(singles[mode][name])}")
+        out[mode] = (rep, counts[counter])
+    gate = stats_gate(out["deposit"][0].to_artifact(),
+                      "stream_serving_registry.json", N_LANES, src)
+    print(f"[registry] mixed artifact: {gate}")
+
+    # hot-swap mid-serve, through K2
+    reg = Registry()
+    for name in names:
+        reg.register(name, deps[name])
+    b2 = circuit_deployments(torch, p2m_dvs.CONFIG, "cuda",
+                             {"b2": ("b", 3)})["b2"]
+
+    def swap(window):
+        if window == SWAP_WINDOW and "b" in reg:
+            reg.retire("b")
+            reg.register("b2", b2)
+
+    def request(sid):
+        n = names[sid % 3]
+        return "b2" if n == "b" and sid >= SWAP_WINDOW else n
+
+    eng = StreamEngine(reg, capacity=N_LANES, device="cuda")
+    zero((sf.LAUNCHES,))
+    rep = eng.serve(src.replay(), N_LANES, seed=0, variants=request,
+                    on_window=swap,
+                    offered_rate=1e3 / p2m_dvs.CONFIG.p2m.t_intg_ms)
+    torch.cuda.synchronize()
+    expected = expected_fold_launches(rep, eng.chunks_per_window)
+    if sf.LAUNCHES["fold"] != expected:
+        fail(f"hot-swap: {dict(sf.LAUNCHES)} launches, expected {expected}")
+    bound = {r.stream_id: r.entry for r in rep.results}
+    want = {sid: request(sid) for sid in range(N_LANES)}
+    if bound != want:
+        fail(f"hot-swap: bindings {bound}, expected {want}")
+    n = check_bit_identical(rep, singles["deposit"], "hot-swap")
+    rows = {e["name"]: e["n_finished"]
+            for e in rep.to_artifact()["registry"]["entries"]}
+    print(f"[registry] hot-swap at window {SWAP_WINDOW} (b retired, b2 "
+          f"registered; one stream offered a window): {serve_line(rep)}; "
+          f"finished per entry {rows}; {n} streams on a, b and c "
+          f"bit-identical to their single-variant serves, launches "
+          f"{sf.LAUNCHES['fold']}")
+
+    # a full entry table rejects at admission
+    reg = Registry()
+    for name in ("a", "b"):
+        reg.register(name, deps[name])
+
+    def add_c(window):
+        if window == 0 and "c" not in reg:
+            reg.register("c", deps["c"])
+
+    msgs: list[str] = []
+    eng = StreamEngine(reg, capacity=N_LANES, max_entries=2, device="cuda")
+    rep = eng.serve(src.replay(), N_LANES, seed=0, variants=variants,
+                    on_window=add_c, log=msgs.append)
+    full = [m for m in msgs if "entry slots have resident lanes" in m]
+    art = rep.to_artifact()
+    n_c = variants.count("c")
+    if art["admission"]["n_rejected"] != n_c or len(full) != n_c:
+        fail(f"max_entries=2: {art['admission']['n_rejected']} rejected, "
+             f"{len(full)} for a full table; expected {n_c}")
+    check_bit_identical(rep, singles["deposit"], "max_entries=2")
+    gate = stats_gate(art, "stream_serving_registry_full.json",
+                      len(rep.results), src)
+    print(f"[registry] max_entries=2 with a, b resident: "
+          f"{art['admission']['n_rejected']} requests for c rejected "
+          f"(EntryTableFull), in the artifact's admission block; {gate}")
+    return {mode: launches for mode, (_, launches) in out.items()}
+
+
+def window_ms(rep, chunks_per_window: int) -> tuple[float, float, float]:
+    """Host-clock ms a window: the window's folds (enqueued), its readout
+    (which ends in the window's one synchronisation), and their sum."""
+    import numpy as np
+    folds = np.add.reduceat(np.asarray(rep.fold_s),
+                            np.arange(0, len(rep.fold_s), chunks_per_window))
+    reads = np.asarray(rep.readout_s)
+    return (float(folds.mean() * 1e3), float(reads.mean() * 1e3),
+            float((folds + reads).mean() * 1e3))
+
+
+def phase_adapt(torch, sf, dep_c, src) -> None:
+    """Per-lane adaptation at full width: the [slice] deployment under
+    benchmarks/stream_adapt.py's leak drift, surrogate rule, lr_w 1.0, the
+    16 recorded (labeled) streams on 16 lanes, beside the frozen engine on
+    the same drift (K2): ms a window, peak memory, updates on every lane;
+    then the lane with the most updates harvested, saved, loaded against
+    its base, applied, registered beside the base and served frozen through
+    K3 and K2 (counters zeroed before and read after). The adaptation
+    artifact through tools/check_stream_stats.py; fold_mode='mac' with
+    adapt raises."""
+    from dataclasses import replace
+    import numpy as np
+    from repro_torch.stream import deploy
+    from repro_torch.stream.adapt import AdaptConfig
+    from repro_torch.stream.engine import StreamEngine
+    from repro_torch.stream.registry import Registry
+    cfg = dep_c.model_cfg
+    drifted = replace(dep_c, model_cfg=replace(cfg, p2m=replace(
+        cfg.p2m, leak=replace(cfg.p2m.leak, **ADAPT_DRIFT))))
+    try:
+        StreamEngine(drifted, capacity=N_LANES, fold_mode="mac",
+                     adapt=AdaptConfig(), device="cuda")
+    except ValueError as e:
+        print(f"[adapt] fold_mode='mac' with adapt refused: {e}")
+    else:
+        fail("fold_mode='mac' with adapt did not raise")
+    runs = {}
+    for name, kw in (("frozen", {}),
+                     ("adapt", {"adapt": AdaptConfig(rule="surrogate",
+                                                     lr_w=1.0)})):
+        eng = StreamEngine(drifted, capacity=N_LANES, device="cuda", **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero((sf.LAUNCHES,))
+        rep = eng.serve(src.replay(), N_LANES, seed=0)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts = dict(sf.LAUNCHES)
+        want = len(rep.fold_s) + 1 if name == "frozen" else 0
+        if counts["fold"] != want or sum(counts.values()) != want:
+            fail(f"adapt {name}: launches {counts}, expected {want} of "
+                 f"fold (the adapting engine runs its own per-lane fold)")
+        if len(rep.results) != N_LANES or not np.isfinite(
+                [r.logits for r in rep.results]).all():
+            fail(f"adapt {name}: {len(rep.results)} streams or non-finite "
+                 f"logits")
+        f_ms, r_ms, w_ms = window_ms(rep, eng.chunks_per_window)
+        art = rep.to_artifact()
+        print(f"[adapt] {name} on the drift {ADAPT_DRIFT}: "
+              f"{serve_line(rep)}; ms a window: folds {f_ms:.3f} + readout "
+              f"{r_ms:.3f} = {w_ms:.3f} (readout p99 "
+              f"{art['latency_ms']['readout_p99']:.3f}); peak "
+              f"{peak:.2f} GiB; accuracy {rep.accuracy:.3f}; launches "
+              f"{counts}")
+        runs[name] = (eng, rep)
+    eng, rep = runs["adapt"]
+    n_upd = eng.adapt_state["n_updates"].cpu().numpy()
+    labeled = np.array([r.label >= 0 for r in rep.results])
+    if not labeled.all() or (n_upd[:N_LANES] <= 0).any():
+        fail(f"adapt: updates per lane {n_upd.tolist()} (every lane serves "
+             f"a labeled stream and must update)")
+    art = rep.to_artifact()
+    gate = stats_gate(art, "stream_serving_adapt.json", N_LANES, src)
+    if "adapting (surrogate)" not in gate:
+        fail(f"adapt: the stats gate saw no live adaptation block: {gate}")
+    ad = art["adaptation"]
+    print(f"[adapt] {ad['n_updates']} updates on {len(ad['lanes'])} lanes, "
+          f"|dw| {min(r['dw_norm'] for r in ad['lanes']):.3g}-"
+          f"{max(r['dw_norm'] for r in ad['lanes']):.3g}, accuracy first "
+          f"half {ad['accuracy_pre']} second {ad['accuracy_post']}; {gate}")
+
+    # close the loop: harvest -> delta checkpoint -> re-serve through K3/K2
+    lane = int(np.argmax(n_upd))
+    h = eng.harvest(lane)
+    d = ROOT / "build" / "chip_smoke" / "adapt_delta"
+    deploy.save_adapt_delta(d, h["base"], dw=h["dw"], dtheta=h["dtheta"],
+                            base_name=h["base_name"],
+                            base_uid=h["base_uid"], lane=lane,
+                            n_updates=h["n_updates"], rule="surrogate")
+    delta = deploy.load_adapt_delta(d, drifted, expect_uid=h["base_uid"])
+    adapted = deploy.apply_adapt_delta(drifted, delta)
+    reg = Registry()
+    reg.register("base", drifted)
+    reg.register("base+adapt", adapted)
+    reports = {}
+    for mode, counter in (("mac", "fold_mac"), ("deposit", "fold")):
+        eng2 = StreamEngine(reg, capacity=N_LANES, fold_mode=mode,
+                            default_entry="base+adapt", device="cuda")
+        zero((sf.LAUNCHES,))
+        r2 = eng2.serve(src.replay(), N_LANES, seed=0)
+        torch.cuda.synchronize()
+        counts = dict(sf.LAUNCHES)
+        expected = expected_fold_launches(r2, eng2.chunks_per_window)
+        if counts[counter] != expected or sum(counts.values()) != expected:
+            fail(f"re-serve {mode}: launches {counts}, expected {expected}")
+        if {r.entry for r in r2.results} != {"base+adapt"}:
+            fail(f"re-serve {mode}: bindings {[r.entry for r in r2.results]}")
+        print(f"[adapt] harvested lane {lane} ({h['n_updates']} updates, "
+              f"|dw| {np.linalg.norm(h['dw']):.3g}, dtheta "
+              f"{h['dtheta']:.3g}) -> delta checkpoint -> applied -> "
+              f"registered beside its base, fold={mode}: {serve_line(r2)}, "
+              f"accuracy {r2.accuracy:.3f}, launches {counts}")
+        reports[mode] = r2
+    diff = check_logits([r.logits for r in reports["mac"].results],
+                        [r.logits for r in reports["deposit"].results],
+                        "adapted entry fold=mac vs fold=deposit")
+    print(f"[adapt] adapted entry fold=mac vs deposit max |logit diff| "
+          f"{diff:.3g}")
+
+
+def phase_registry_parity(torch) -> None:
+    """reduced(): the three circuits in one registry, 16 streams requested
+    round-robin with one unknown name, on cuda and on the CPU from the
+    same recordings: logits within LOGIT_ATOL, predictions (where the
+    top-two gap exceeds GAP), bindings and rejections equal."""
+    from repro_torch.configs import p2m_dvs
+    from repro_torch.data import sources
+    from repro_torch.stream.engine import StreamEngine, stream_generator
+    from repro_torch.stream.registry import Registry
+    rcfg, rdata = p2m_dvs.reduced()
+    variants = [("a", "b", "c")[i % 3] for i in range(N_LANES)]
+    variants[4] = "nope"
+    runs = {}
+    for device in ("cuda", "cpu"):
+        deps = circuit_deployments(torch, rcfg, device, {
+            "a": ("a", 1), "b": ("b", 2), "c": ("c", 0)})
+        reg = Registry()
+        for name, d in deps.items():
+            reg.register(name, d)
+        eng = StreamEngine(reg, capacity=8, device=device)
+        rsrc = Prerecorded(sources.resolve_dataset(
+            "synthetic-gesture", hw=rcfg.backbone.input_hw[0],
+            duration_ms=rdata.duration_ms), N_LANES, 1, eng.chunk_us,
+            eng.slot_us, stream_generator)
+        runs[device] = eng.serve(rsrc.replay(), N_LANES, seed=1,
+                                 variants=variants)
+    by = {dv: sorted(r.results, key=lambda x: x.stream_id)
+          for dv, r in runs.items()}
+    bindings = {dv: [(r.stream_id, r.entry) for r in rs]
+                for dv, rs in by.items()}
+    if bindings["cuda"] != bindings["cpu"]:
+        fail("registry parity: bindings differ between cuda and cpu")
+    if not runs["cuda"].n_rejected == runs["cpu"].n_rejected == 1:
+        fail(f"registry parity: rejections {runs['cuda'].n_rejected} vs "
+             f"{runs['cpu'].n_rejected}, expected 1")
+    diff = check_logits([r.logits for r in by["cuda"]],
+                        [r.logits for r in by["cpu"]],
+                        "registry cuda vs cpu")
+    print(f"[registry parity] reduced(): 3 entries, {N_LANES} requests (1 "
+          f"rejected) on 8 lanes, cuda vs cpu max |logit diff| {diff:.3g}, "
+          f"predictions {[r.prediction for r in by['cuda']]}")
+
+
+def phase_adapt_parity(torch) -> None:
+    """reduced(): surrogate adaptation (lr_w 1.0, lr_theta 0.01) of 16
+    streams on 8 lanes on cuda and on the CPU: update counts equal; dw and
+    dtheta within ADAPT_RTOL of their largest element; logits within
+    LOGIT_ATOL. Then on the card, lr 0 against the frozen K2 serve: logits
+    within LOGIT_ATOL, predictions equal, the gap printed."""
+    import numpy as np
+    from repro_torch.configs import p2m_dvs
+    from repro_torch.data import sources
+    from repro_torch.stream.adapt import AdaptConfig
+    from repro_torch.stream.engine import StreamEngine, stream_generator
+    rcfg, rdata = p2m_dvs.reduced()
+
+    def serve(device, adapt):
+        dep = circuit_deployments(torch, rcfg, device,
+                                  {"c": ("c", 0)})["c"]
+        eng = StreamEngine(dep, capacity=8, device=device, adapt=adapt)
+        rsrc = Prerecorded(sources.resolve_dataset(
+            "synthetic-gesture", hw=rcfg.backbone.input_hw[0],
+            duration_ms=rdata.duration_ms), N_LANES, 1, eng.chunk_us,
+            eng.slot_us, stream_generator)
+        rep = eng.serve(rsrc.replay(), N_LANES, seed=1)
+        st = ({k: v.cpu().numpy() for k, v in eng.adapt_state.items()}
+              if adapt is not None else None)
+        return sorted(rep.results, key=lambda r: r.stream_id), st
+
+    cfg = AdaptConfig(rule="surrogate", lr_w=1.0, lr_theta=0.01)
+    (cres, cst), (pres, pst) = serve("cuda", cfg), serve("cpu", cfg)
+    if not (cst["n_updates"] == pst["n_updates"]).all() or \
+            pst["n_updates"].min() <= 0:
+        fail(f"adapt parity: updates {cst['n_updates'].tolist()} vs "
+             f"{pst['n_updates'].tolist()}")
+    errs = {}
+    for key in ("dw", "dtheta"):
+        scale = float(np.abs(pst[key]).max())
+        errs[key] = float(np.abs(cst[key] - pst[key]).max()) / scale
+        if not (scale > 0 and errs[key] <= ADAPT_RTOL):
+            fail(f"adapt parity: {key} differs by {errs[key]:.3g} of its "
+                 f"largest ({scale:.3g}) > {ADAPT_RTOL}")
+    diff = check_logits([r.logits for r in cres], [r.logits for r in pres],
+                        "adapt cuda vs cpu")
+    off, _ = serve("cuda", AdaptConfig(lr_w=0.0))
+    frozen, _ = serve("cuda", None)
+    gap = check_logits([r.logits for r in off], [r.logits for r in frozen],
+                       "adapt lr 0 vs frozen K2 on the card")
+    if [r.prediction for r in off] != [r.prediction for r in frozen]:
+        fail("adapt lr 0 vs frozen on the card: predictions differ")
+    print(f"[adapt parity] reduced(): {int(pst['n_updates'].sum())} updates "
+          f"on 8 lanes, cuda vs cpu: dw {errs['dw']:.3g}, dtheta "
+          f"{errs['dtheta']:.3g} of their largest (limit {ADAPT_RTOL}), "
+          f"max |logit diff| {diff:.3g}; on the card lr 0 (per-lane cuDNN "
+          f"fold) vs frozen (K2): max |logit diff| {gap:.3g}, predictions "
+          f"equal")
+
+
+def registry_and_adapt(torch, sf, dep, src, reports) -> None:
+    """5b-5d: registry serving and adaptation at full width, then both at
+    reduced() on cuda against the CPU."""
+    for name, phase in (
+            ("registry", lambda: phase_registry(torch, sf, dep, src,
+                                                reports)),
+            ("adapt", lambda: phase_adapt(torch, sf, dep, src)),
+            ("registry parity", lambda: phase_registry_parity(torch)),
+            ("adapt parity", lambda: phase_adapt_parity(torch))):
+        if ONLY and name.split()[0] not in ONLY:
+            continue
+        t0 = time.perf_counter()
+        phase()
+        torch.cuda.empty_cache()
+        print(f"[{name}] phase {time.perf_counter() - t0:.1f} s")
+
+
 def measure_tree(torch) -> None:
     """``--measure-tree ROOT``: K1, the MAC-mode fold_chunk and K4 as the
     checkout at ROOT has them (its src/ first on the path, its kernels
@@ -1672,9 +2142,13 @@ def measure_tree(torch) -> None:
 
 
 def main() -> int:
-    global SRC
+    global SRC, ONLY
     if sys.argv[1:2] == ["--measure-tree"]:
         SRC = Path(sys.argv[2]).resolve() / "src"
+    if sys.argv[1:2] == ["--only"]:
+        ONLY = set(sys.argv[2].split(","))
+        if not ONLY <= {"registry", "adapt"}:
+            fail(f"--only takes registry and/or adapt, got {sys.argv[2]}")
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              f"the root of a checkout")
@@ -1707,48 +2181,51 @@ def main() -> int:
     print(f"[build] {', '.join(_build.sources())} -> {_build.BUILD_DIR} "
           f"in {secs:.1f} s")
 
-    # the physics batch and model, drawn on the host before any timing
     from repro_torch.configs import p2m_dvs
     from repro_torch.core import codesign, leakage
     from repro_torch.data import events as ev_mod
+    from repro_torch.kernels.stream_fold import stream_fold as sf
     from repro_torch.stream import deploy
     cfg = p2m_dvs.CONFIG
-    t0 = time.perf_counter()
-    ev_host, labels = ev_mod.sample_batch(
-        torch.Generator().manual_seed(0), p2m_dvs.DATA, PHYS_B,
-        cfg.p2m.t_intg_ms, cfg.p2m.n_sub)
-    print(f"[physics] drew {PHYS_B} synthetic-gesture samples x "
-          f"{p2m_dvs.DATA.duration_ms:g} ms {tuple(ev_host.shape)} on the "
-          f"host in {time.perf_counter() - t0:.1f} s, "
-          f"{float(ev_host.sum()):.0f} events")
-    events = ev_host.to("cuda")
-    del ev_host
-    params, state = codesign.model_init(torch.Generator().manual_seed(0), cfg)
-    params = awake(deploy.tree_to(params, torch.device("cuda")))
-    state = deploy.tree_to(state, torch.device("cuda"))
+    # --only: none of the physics batch, the kernel timings, or the
+    # phases after the slice but the ones named
+    if not ONLY:
+        # the physics batch and model, drawn on the host before any timing
+        t0 = time.perf_counter()
+        ev_host, labels = ev_mod.sample_batch(
+            torch.Generator().manual_seed(0), p2m_dvs.DATA, PHYS_B,
+            cfg.p2m.t_intg_ms, cfg.p2m.n_sub)
+        print(f"[physics] drew {PHYS_B} synthetic-gesture samples x "
+              f"{p2m_dvs.DATA.duration_ms:g} ms {tuple(ev_host.shape)} on the "
+              f"host in {time.perf_counter() - t0:.1f} s, "
+              f"{float(ev_host.sum()):.0f} events")
+        events = ev_host.to("cuda")
+        del ev_host
+        params, state = codesign.model_init(torch.Generator().manual_seed(0), cfg)
+        params = awake(deploy.tree_to(params, torch.device("cuda")))
+        state = deploy.tree_to(state, torch.device("cuda"))
 
-    # 3. kernels against their plain versions
-    from repro_torch.kernels.lif import lif
-    from repro_torch.kernels.lif.ref import lif_ref
-    from repro_torch.kernels.p2m_conv import ops as conv_ops
-    from repro_torch.kernels.p2m_conv import p2m_conv as pc
-    from repro_torch.kernels.stream_fold import ref
-    from repro_torch.kernels.stream_fold import stream_fold as sf
-    flush, write_flush = l2_flushers(torch)
-    rows = phase_kernels(torch, sf, ref, flush, write_flush)
-    k1_rows = phase_p2m_conv(torch, conv_ops, pc, events, params["p2m"],
-                             cfg.p2m, leakage.paper_circuits(), flush)
-    lif_rows = phase_lif(torch, lif, lif_ref, flush)
-    from repro_torch.kernels.flash_attention import flash_attention as fa
-    from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention import ref as fa_ref
-    from repro_torch.kernels.ssd import ssd as sd
-    from repro_torch.kernels.ssd.ref import ssd_ref
-    fa_rows = phase_flash_attention(torch, fa_ops, fa_ref, flush)
-    ssd_rows = phase_ssd(torch, sd, ssd_ref, flush)
-    del flush, write_flush
-    print(f"[kernels] after timing: clocks.sm, power.draw, temperature = "
-          f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
+        # 3. kernels against their plain versions
+        from repro_torch.kernels.lif import lif
+        from repro_torch.kernels.lif.ref import lif_ref
+        from repro_torch.kernels.p2m_conv import ops as conv_ops
+        from repro_torch.kernels.p2m_conv import p2m_conv as pc
+        from repro_torch.kernels.stream_fold import ref
+        flush, write_flush = l2_flushers(torch)
+        rows = phase_kernels(torch, sf, ref, flush, write_flush)
+        k1_rows = phase_p2m_conv(torch, conv_ops, pc, events, params["p2m"],
+                                 cfg.p2m, leakage.paper_circuits(), flush)
+        lif_rows = phase_lif(torch, lif, lif_ref, flush)
+        from repro_torch.kernels.flash_attention import flash_attention as fa
+        from repro_torch.kernels.flash_attention import ops as fa_ops
+        from repro_torch.kernels.flash_attention import ref as fa_ref
+        from repro_torch.kernels.ssd import ssd as sd
+        from repro_torch.kernels.ssd.ref import ssd_ref
+        fa_rows = phase_flash_attention(torch, fa_ops, fa_ref, flush)
+        ssd_rows = phase_ssd(torch, sd, ssd_ref, flush)
+        del flush, write_flush
+        print(f"[kernels] after timing: clocks.sm, power.draw, temperature = "
+              f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
 
     # 4. the slice at full width, through each fold kernel
     from repro_torch.data import sources
@@ -1801,6 +2278,12 @@ def main() -> int:
                         "fold=mac vs fold=deposit")
     print(f"[slice] fold=mac vs deposit: max |logit diff| {diff:.3g}")
 
+    if ONLY:
+        registry_and_adapt(torch, sf, dep, src, reports)
+        print(f"[done] --only {','.join(sorted(ONLY))} in "
+              f"{time.perf_counter() - t_all:.1f} s (no ok line)")
+        return 0
+
     # 5. the same seeded streams on cuda and on the CPU, at reduced()
     rcfg, rdata = p2m_dvs.reduced()
     runs = {}
@@ -1820,6 +2303,7 @@ def main() -> int:
     print(f"[parity] reduced(): {N_LANES} streams on 8 lanes, cuda vs cpu "
           f"max |logit diff| {diff:.3g}, predictions "
           f"{[r.prediction for r in by_id['cuda']]}")
+    registry_and_adapt(torch, sf, dep, src, reports)
 
     # 6. the physics slice at full width, through K1 and K4
     print(f"[physics] {cfg.backbone.input_hw} input, {cfg.p2m.out_channels} "

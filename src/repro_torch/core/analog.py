@@ -32,10 +32,16 @@ class AnalogConfig:
 def quantize_weights(w: torch.Tensor, cfg: AnalogConfig) -> torch.Tensor:
     """Signed uniform quantization to transistor geometry levels, with a
     straight-through estimator: forward quantized, gradient identity.
-    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
-    w = torch.clamp(w, -cfg.w_clip, cfg.w_clip)
+    ``torch.round`` rounds half to even, as ``jnp.round`` does. The clip is
+    ``jnp.clip``'s ``minimum(maximum(w, lo), hi)``, whose gradient at a
+    weight exactly on ``±w_clip`` is 1/2 (``torch.clamp`` would pass 1):
+    an adapted weight ``w_q + dw`` sits there whenever ``w_q`` is a rail
+    level and ``dw`` is 0. The division is :func:`true_div`, so the levels
+    are the same on every device."""
+    lim = torch.full((), cfg.w_clip, dtype=w.dtype, device=w.device)
+    w = torch.minimum(torch.maximum(w, -lim), lim)
     scale = cfg.w_clip / (cfg.weight_levels // 2)
-    q = torch.round(w / scale) * scale
+    q = torch.round(true_div(w, scale)) * scale
     return w + (q - w).detach()
 
 

@@ -1,34 +1,50 @@
-"""Execution policy of the sweep's stacked variant axis — the port's
+"""Execution policy of a stacked leading axis — the port's
 ``repro.core.sweep_exec`` at one device.
 
-The reference shards the ``[n_cfg]`` axis over a 1-D device mesh with
+The reference shards a leading axis (the sweep's ``[n_cfg]`` variants,
+the serving engine's ``[capacity]`` lanes) over a 1-D device mesh with
 ``shard_map``; ``devices=1`` is its exact unsharded path (no mesh, no
-padding), which is the only one the port runs: the sweep takes no
-executor, and this module only refuses more devices before any compute
-and names the count the launcher writes into the artifact.
+padding), which is the only one the port runs. :class:`MeshExecutor`
+holds that policy, refuses more devices before any compute, and names the
+geometry the launchers write into their artifacts;
+:class:`SweepExecutor` is the sweep's instance and
+``stream/shard.LaneExecutor`` the serving engine's.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 
-def _one_device_only(devices: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"devices={devices}: sharding the variant axis over several cards "
-        f"comes with a later slice of the port (ROADMAP.md queue 1 item 5); "
-        f"the port runs the sweep on one card")
-
-
 @dataclass(frozen=True)
-class SweepExecutor:
-    """The sweep engine's executor at ``devices=1``."""
+class MeshExecutor:
+    """A 1-D ``axis`` mesh of ``devices`` cards; only ``devices=1`` runs."""
     devices: int = 1
+    axis: str = "cfg"
 
     def __post_init__(self):
         if self.devices < 1:
             raise ValueError(f"devices must be >= 1, got {self.devices}")
         if self.devices > 1:
-            raise _one_device_only(self.devices)
+            raise NotImplementedError(
+                f"devices={self.devices}: sharding the {self.axis!r} axis "
+                f"over several cards is not ported (ROADMAP.md queue 1 item "
+                f"5 leaves the multi-GPU mesh open); the port runs on one "
+                f"card")
+
+    @property
+    def is_sharded(self) -> bool:
+        return self.devices > 1
+
+    def padded_size(self, n: int) -> int:
+        """The leading axis padded up to a multiple of ``devices``."""
+        return math.ceil(n / self.devices) * self.devices
+
+
+@dataclass(frozen=True)
+class SweepExecutor(MeshExecutor):
+    """The sweep engine's executor: the variant axis."""
+    axis: str = "cfg"
 
 
 def make_executor(devices: int | None) -> SweepExecutor:

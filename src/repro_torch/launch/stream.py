@@ -17,6 +17,16 @@ The deployment is one of:
     ``--smoke`` defaults to the dvs128 fixture, which comes with a later
     slice: pass ``--dataset synthetic-gesture``.
 
+``--registry CKPT [CKPT ...]`` serves a deployment registry of several
+compat-equal checkpoints from one engine (entry name = the directory's
+basename, the first is the default entry); ``--variants SPEC [...]`` gives
+each stream a variant request, cycled round-robin: an entry name or a
+``k=v[,k=v...]`` metadata matcher, resolved at admission (unresolvable
+requests are rejected and counted). ``--adapt`` turns on per-lane online
+adaptation (``--adapt-rule``, ``--adapt-lr``, ``--adapt-lr-theta``);
+``--adapt-export DIR`` harvests every adapted lane into a delta checkpoint
+``DIR/lane<N>``. ``--devices`` takes 1 only (one card).
+
 It runs on ``--device`` (default ``cuda``; the kernels build into
 ``build/kernels/`` at first use).
 
@@ -24,6 +34,10 @@ It runs on ``--device`` (default ``cuda``; the kernels build into
   python -m repro_torch.launch.stream --device cpu --config reduced --streams 4
   python -m repro_torch.launch.stream --smoke --dataset synthetic-gesture \\
       --device cpu --streams 2 --capacity 2
+  python -m repro_torch.launch.stream --registry ckpt_a ckpt_b \\
+      --variants ckpt_a circuit=b --streams 16 --capacity 16
+  python -m repro_torch.launch.stream --checkpoint ckpt_a --adapt \\
+      --adapt-lr 0.5 --adapt-export deltas --streams 16 --capacity 16
 """
 from __future__ import annotations
 
@@ -36,6 +50,22 @@ from pathlib import Path
 def _later_slice(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} comes with a later slice of the "
                                f"PyTorch port")
+
+
+def _parse_variant_spec(spec: str):
+    """CLI variant request → registry request: a bare entry name, or a
+    ``k=v[,k=v...]`` metadata matcher (values parsed as JSON scalars when
+    possible, e.g. ``t_intg_ms=100.0``)."""
+    if "=" not in spec:
+        return spec
+    matcher = {}
+    for kv in spec.split(","):
+        k, _, v = kv.partition("=")
+        try:
+            matcher[k] = json.loads(v)
+        except json.JSONDecodeError:
+            matcher[k] = v
+    return matcher
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -81,31 +111,68 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--chunks-per-window", type=int, default=None,
                     help="replay chunks per T_INTG window (divides n_sub)")
     ap.add_argument("--fold-mode", choices=["deposit", "mac"],
-                    default="deposit",
+                    default=None,
                     help="streaming-fold kernel: conv deposits folded in "
-                         "the kernel, or the conv inside the kernel")
+                         "the kernel (the default), or the conv inside the "
+                         "kernel; --adapt runs its own per-lane fold")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=str, default="artifacts/stream_torch")
-    ap.add_argument("--registry", nargs="+", default=None,
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--adapt", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--registry", type=str, nargs="+", default=None,
+                    metavar="CKPT",
+                    help="serve a deployment registry of these checkpoint "
+                         "dirs (entry name = dir basename; the first is the "
+                         "default entry); excludes --checkpoint")
+    ap.add_argument("--variants", type=str, nargs="+", default=None,
+                    metavar="SPEC",
+                    help="per-stream variant requests, cycled round-robin: "
+                         "an entry name or a k=v[,k=v] metadata matcher "
+                         "(requires --registry)")
+    ap.add_argument("--max-entries", type=int, default=None,
+                    help="registry engine param-table size (variants "
+                         "co-resident on the lanes; default entries + 1)")
+    ap.add_argument("--adapt", action="store_true",
+                    help="per-lane online adaptation of the layer-1 "
+                         "weights and threshold from each stream's labels")
+    ap.add_argument("--adapt-rule", choices=["surrogate", "reward"],
+                    default="surrogate",
+                    help="surrogate-gradient descent, or reward-modulated "
+                         "three-factor (eligibility traces)")
+    ap.add_argument("--adapt-lr", type=float, default=5e-3,
+                    help="weight-delta learning rate")
+    ap.add_argument("--adapt-lr-theta", type=float, default=0.0,
+                    help="comparator-threshold learning rate")
+    ap.add_argument("--adapt-export", type=str, default=None, metavar="DIR",
+                    help="harvest every adapted lane into a delta "
+                         "checkpoint DIR/lane<N> (requires --adapt)")
     ap.add_argument("--devices", type=int, default=None,
-                    help=argparse.SUPPRESS)
+                    help="lane-mesh devices; the port runs 1")
+    ap.add_argument("--bin-workers", type=int, default=None,
+                    help="host binning worker threads (default: one per "
+                         "device)")
     ap.add_argument("--smoke", action="store_true",
                     help="train and deploy at the reference's smoke scale")
     args = ap.parse_args(argv)
 
-    if args.registry is not None:
-        raise _later_slice("registry serving (stream/registry.py)")
-    if args.adapt:
-        raise _later_slice("online adaptation (stream/adapt.py)")
-    if args.devices not in (None, 1):
-        raise _later_slice("lane sharding (stream/shard.py)")
+    if args.registry is not None and args.checkpoint is not None:
+        print("error: --registry and --checkpoint are mutually exclusive",
+              file=sys.stderr)
+        return 2
+    if args.variants is not None and args.registry is None:
+        print("error: --variants requires --registry", file=sys.stderr)
+        return 2
+    if args.adapt_export is not None and not args.adapt:
+        print("error: --adapt-export requires --adapt", file=sys.stderr)
+        return 2
 
     from repro_torch.configs import p2m_dvs
     from repro_torch.data import sources
     from repro_torch.stream import deploy
+    from repro_torch.stream.adapt import AdaptConfig
     from repro_torch.stream.engine import StreamEngine
+    from repro_torch.stream.registry import Registry
+    from repro_torch.stream.shard import make_lane_executor
+
+    executor = make_lane_executor(args.devices)
 
     dataset = args.dataset or ("dvs128" if args.smoke
                                else "synthetic-gesture")
@@ -114,14 +181,29 @@ def main(argv: list[str] | None = None) -> int:
                            f"(data/fixtures.py, ROADMAP.md queue 1 item 6)")
 
     out = Path(args.out)
-    if args.checkpoint is not None:
-        dep = deploy.load_deployment(args.checkpoint, device=args.device,
-                                     artifact=args.artifact)
-        duration = args.duration_ms
+    default_entry = None
+    duration = args.duration_ms
+    if args.registry is not None:
+        target = Registry()
+        for d in args.registry:
+            entry = target.register_checkpoint(
+                Path(d).name, d, artifact=args.artifact,
+                device=args.device)
+            print(f"[registry] {entry.name}#{entry.uid} "
+                  f"({entry.meta.get('label')}/"
+                  f"{entry.meta.get('protocol')} "
+                  f"T={entry.meta.get('t_intg_ms'):g}ms, compat "
+                  f"{entry.compat_digest})")
+        default_entry = target.names()[0]
+        dep = target.get(default_entry).dep
+    elif args.checkpoint is not None:
+        dep = target = deploy.load_deployment(
+            args.checkpoint, device=args.device, artifact=args.artifact)
     elif args.config is not None and not args.smoke:
-        cfg, data = ((p2m_dvs.CONFIG, p2m_dvs.DATA) if args.config == "full"
-                     else p2m_dvs.reduced())
-        dep = deploy.fresh_deployment(cfg, seed=args.seed, device=args.device)
+        cfg, data = ((p2m_dvs.CONFIG, p2m_dvs.DATA)
+                     if args.config == "full" else p2m_dvs.reduced())
+        dep = target = deploy.fresh_deployment(cfg, seed=args.seed,
+                                               device=args.device)
         duration = args.duration_ms or data.duration_ms
     else:
         bundle = deploy.train_and_deploy(
@@ -132,19 +214,31 @@ def main(argv: list[str] | None = None) -> int:
                               is not None else
                               (100.0 if args.smoke else None)),
             device=args.device)
-        dep = deploy.load_deployment(bundle["checkpoints"][args.protocol],
-                                     device=args.device,
-                                     artifact=bundle["artifact"])
-        duration = args.duration_ms
-    source = sources.resolve_dataset(dataset,
-                                     hw=dep.model_cfg.backbone.input_hw[0],
-                                     duration_ms=duration)
-    engine = StreamEngine(dep, capacity=args.capacity,
+        dep = target = deploy.load_deployment(
+            bundle["checkpoints"][args.protocol], device=args.device,
+            artifact=bundle["artifact"])
+    source = sources.resolve_dataset(
+        dataset, hw=dep.model_cfg.backbone.input_hw[0],
+        duration_ms=duration)
+    adapt = (AdaptConfig(rule=args.adapt_rule, lr_w=args.adapt_lr,
+                         lr_theta=args.adapt_lr_theta)
+             if args.adapt else None)
+    engine = StreamEngine(target, capacity=args.capacity,
                           chunks_per_window=args.chunks_per_window,
-                          fold_mode=args.fold_mode, device=args.device)
+                          fold_mode=args.fold_mode, device=args.device,
+                          executor=executor,
+                          bin_workers=args.bin_workers,
+                          max_entries=args.max_entries,
+                          default_entry=default_entry, adapt=adapt)
+    variants = None
+    if args.variants is not None:
+        reqs = [_parse_variant_spec(v) for v in args.variants]
+        variants = lambda sid: reqs[sid % len(reqs)]  # noqa: E731
     report = engine.serve(source, args.streams, seed=args.seed,
-                          paced=args.paced, offered_rate=args.offered_rate,
-                          max_pending=args.max_pending, log=print)
+                          paced=args.paced,
+                          offered_rate=args.offered_rate,
+                          max_pending=args.max_pending,
+                          variants=variants, log=print)
 
     art = report.to_artifact()
     art["data"] = {"dataset": dataset, "hw": source.height,
@@ -157,7 +251,8 @@ def main(argv: list[str] | None = None) -> int:
     lat, thr, adm = art["latency_ms"], art["throughput"], art["admission"]
     print(f"\n=== stream serving on {art['device']} ({art['n_streams']} "
           f"streams, {report.capacity} lanes, T_INTG={art['t_intg_ms']:g}ms, "
-          f"fold {args.fold_mode}{', paced' if art['paced'] else ''}) ===")
+          f"fold {engine.fold_mode or 'per-lane (adapt)'}"
+          f"{', paced' if art['paced'] else ''}) ===")
     print(f"accuracy       {art['accuracy']:.3f}")
     print(f"readout p50    {lat['readout_p50']:.2f} ms   "
           f"p99 {lat['readout_p99']:.2f} ms")
@@ -167,12 +262,38 @@ def main(argv: list[str] | None = None) -> int:
           f"{thr['readouts_per_s']:.1f} readouts/s   wall "
           f"{thr['wall_s']:.2f} s")
     print(f"admission      offered {adm['n_offered']}  admitted "
-          f"{adm['n_admitted']}  shed {adm['n_shed']}  deferred "
-          f"{adm['n_deferred']}  max open {adm['max_open_streams']}")
+          f"{adm['n_admitted']}  shed {adm['n_shed']}  rejected "
+          f"{adm['n_rejected']}  deferred {adm['n_deferred']}  max open "
+          f"{adm['max_open_streams']}")
+    if args.registry is not None:
+        for row in art["registry"]["entries"]:
+            print(f"variant        {row['name']}#{row['uid']}  admitted "
+                  f"{row['n_admitted']}  finished {row['n_finished']}  "
+                  f"acc {row['accuracy']:.3f}  "
+                  f"{row['events_per_s']:.0f} events/s")
     if art["paced"]:
         ddl = art["deadlines"]
         print(f"deadlines      {ddl['n_misses']}/{ddl['n_deadlines']} missed "
               f"({ddl['miss_rate']:.2%})")
+    ad = art["adaptation"]
+    if ad["enabled"]:
+        fmt = lambda a: "-" if a is None else f"{a:.3f}"  # noqa: E731
+        print(f"adaptation     {ad['rule']}  lr_w {ad['lr_w']:g}  "
+              f"{ad['n_updates']} updates on {len(ad['lanes'])} lane(s)   "
+              f"acc pre {fmt(ad['accuracy_pre'])} -> "
+              f"post {fmt(ad['accuracy_post'])}")
+        if args.adapt_export is not None:
+            for row in ad["lanes"]:
+                h = engine.harvest(row["lane"])
+                d = Path(args.adapt_export) / f"lane{row['lane']}"
+                deploy.save_adapt_delta(
+                    d, h["base"], dw=h["dw"], dtheta=h["dtheta"],
+                    base_name=h["base_name"], base_uid=h["base_uid"],
+                    lane=h["lane"], n_updates=h["n_updates"],
+                    rule=args.adapt_rule, meta={"dataset": dataset})
+                print(f"[adapt] lane {row['lane']}: {h['n_updates']} "
+                      f"updates on base {h['base_name']}#{h['base_uid']} "
+                      f"-> {d}")
     print(f"artifact: {path}")
     return 0
 

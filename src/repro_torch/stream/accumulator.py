@@ -19,6 +19,13 @@ lane table whose streams start and finish independently.
 
 On ``cuda`` the fold is one hand-written kernel launch per chunk
 (``kernels/stream_fold``); on the CPU it is the kernel's plain version.
+
+:func:`make_multi_stream_fns` serves a registry of compat-equal
+deployments from one lane table: each call takes a per-lane ``entry``
+index into a stacked numerics ``bundle`` (:func:`stack_entries`), runs
+each served entry's full-lane-batch fold and readout, and keeps for every
+lane the rows of the entry it is bound to. Lanes never mix, so a lane's
+state is bit-identical to a single-variant serve of its entry.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from repro_torch.core import analog, leakage, p2m_layer, snn
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.kernels.stream_fold import ops as stream_fold_ops
 from repro_torch.stream.deploy import Deployment, tree_to
+from repro_torch.utils import tree_map
 
 
 def _mask(m: torch.Tensor, new: torch.Tensor, old: torch.Tensor
@@ -54,12 +62,36 @@ class StreamFns:
     device: torch.device
 
 
-def relinearized_numerics(w_raw: torch.Tensor, theta: float, *,
+@dataclass(frozen=True)
+class MultiStreamFns:
+    """The multi-variant serving surface (``stream/registry.py``): ``fold``
+    and ``readout`` also take a per-lane ``entry`` index ``[capacity]``
+    (host ints) into the ``[E]`` axis of a stacked numerics ``bundle``
+    (:func:`stack_entries`). The bundle is an argument, so a hot-swap
+    re-stacks it and nothing else changes."""
+    init_state: Callable[[], dict]
+    reset_lane: Callable[[dict, int], dict]
+    fold: Callable[[dict, torch.Tensor, np.ndarray, np.ndarray, dict], dict]
+    readout: Callable[[dict, np.ndarray, np.ndarray, np.ndarray, dict],
+                      tuple[dict, dict]]
+    in_hw: tuple[int, int]
+    n_classes: int
+    device: torch.device
+
+
+def relinearized_numerics(w_raw: torch.Tensor,
+                          theta: "float | torch.Tensor", *,
                           analog_cfg, coeffs: leakage.LeakCoeffs,
                           n_sub: int, dt_ms: float) -> dict:
     """Quantize the raw layer-1 weights, re-linearize the leak from the
     quantized kernel, and derive the per-filter sub-slot decay ``a`` and
-    window ``drift`` (forward only)."""
+    window ``drift``.
+
+    Differentiable in ``w_raw`` (straight-through quantizer, the branch-free
+    ``leak_params_from_coeffs`` with the reference's tie rules) and in
+    ``theta`` (a float, or a 0-dim tensor such as one lane's
+    ``theta_base + dtheta``): per-lane adaptation (``stream/adapt.py``)
+    takes its surrogate gradients through exactly these numerics."""
     w_q = analog.quantize_weights(w_raw, analog_cfg)
     lk = leakage.leak_params_from_coeffs(w_q, coeffs)
     a = leakage.decay_factor(lk.tau_ms, dt_ms)
@@ -86,6 +118,36 @@ def entry_numerics(dep: Deployment) -> dict:
     }
 
 
+def stack_entries(numerics: list[dict]) -> dict:
+    """Stack per-entry numerics trees (:func:`entry_numerics` on one
+    device) on a leading ``[E]`` entry axis: the ``bundle`` argument of
+    :class:`MultiStreamFns`. Tensor leaves are stacked; any other leaf (the
+    ``LeakCoeffs`` of ``adapt.adapt_entry_numerics``) is kept as a list of
+    E. All entries must be compat-equal (identical leaf shapes)."""
+    if not numerics:
+        raise ValueError("cannot stack an empty entry list")
+
+    def stack(*xs):
+        if all(isinstance(x, torch.Tensor) for x in xs):
+            return torch.stack(xs)
+        return list(xs)
+
+    return tree_map(stack, *numerics)
+
+
+def take_entry(bundle: dict, e: int) -> dict:
+    """Entry ``e``'s numerics out of a :func:`stack_entries` bundle."""
+    if isinstance(bundle, dict):
+        return {k: take_entry(v, e) for k, v in bundle.items()}
+    return bundle[e]
+
+
+def _check_fold_mode(fold_mode: str) -> None:
+    if fold_mode not in stream_fold_ops.MODES:
+        raise ValueError(f"unknown fold_mode {fold_mode!r} (expected one of "
+                         f"{stream_fold_ops.MODES})")
+
+
 def _fold_core(x: torch.Tensor, frames: torch.Tensor, nb: dict, *,
                stride: int, dv_unit: float, mode: str = "deposit"
                ) -> torch.Tensor:
@@ -97,21 +159,93 @@ def _fold_core(x: torch.Tensor, frames: torch.Tensor, nb: dict, *,
                                       mode=mode)
 
 
+def _layer1_readout(x: torch.Tensor, coarse: torch.Tensor, drift, theta,
+                    pv: dict, analog_cfg) -> dict:
+    """Layer 1 at a T_INTG boundary from the linear charge ``x``: drift,
+    transfer curve + PV, comparator, 2x pool, coarse accumulate. Every op
+    is elementwise per lane (or a window max), so per-lane ``drift`` /
+    ``theta`` / ``pv`` broadcast to the values a shared one gives."""
+    v_pre = analog.transfer_curve(x + drift, analog_cfg, pv)
+    spikes = snn.spike_fn(v_pre - theta)                      # [B, H, W, C]
+    pooled = snn.max_pool(spikes)
+    return {"spikes": spikes, "pooled": pooled, "coarse": coarse + pooled}
+
+
 def _readout_core(state: dict, nb: dict, *, analog_cfg, bb_cfg,
                   step_backbone: bool = True) -> dict:
-    """T_INTG readout over every lane: drift, transfer curve + PV,
-    comparator, 2x pool, coarse accumulate and (``step_backbone``) one
-    backbone step. Masking is the caller's job."""
-    v_pre = analog.transfer_curve(state["x"] + nb["drift"], analog_cfg,
-                                  nb["pv"])
-    spikes = snn.spike_fn(v_pre - nb["theta"])                # [B, H, W, C]
-    pooled = snn.max_pool(spikes)
-    coarse = state["coarse"] + pooled
-    ro = {"spikes": spikes, "pooled": pooled, "coarse": coarse}
+    """T_INTG readout over every lane: :func:`_layer1_readout` and
+    (``step_backbone``) one backbone step. Masking is the caller's job."""
+    ro = _layer1_readout(state["x"], state["coarse"], nb["drift"],
+                         nb["theta"], nb["pv"], analog_cfg)
     if step_backbone:
         ro["logits_t"], ro["mem2"] = snn.spiking_cnn_stream_step(
-            nb["backbone"], nb["bn_state"], state["mem"], coarse, bb_cfg)
+            nb["backbone"], nb["bn_state"], state["mem"], ro["coarse"],
+            bb_cfg)
     return ro
+
+
+def _commit_readout(state: dict, ro: dict, act: torch.Tensor,
+                    cm: torch.Tensor, step: bool) -> tuple[dict, dict]:
+    """The readout's state update: ``act`` lanes precharge (x ← 0) and keep
+    their coarse counts, ``cm ⊆ act`` lanes (a completed coarse window)
+    clear them, take the backbone's membranes and add its logits. Returns
+    the new state and the per-lane outputs."""
+    coarse = ro["coarse"]
+    new_state = {
+        "x": _mask(act, torch.zeros_like(state["x"]), state["x"]),
+        "coarse": _mask(act, _mask(cm, torch.zeros_like(coarse), coarse),
+                        state["coarse"]),
+        "mem": state["mem"],
+        "logits": state["logits"],
+        "n_coarse": state["n_coarse"] + cm.to(torch.int32),
+    }
+    if step:
+        new_state["mem"] = {k: _mask(cm, v, state["mem"][k])
+                            for k, v in ro["mem2"].items()}
+        new_state["logits"] = state["logits"] + _mask(
+            cm, ro["logits_t"], torch.zeros_like(ro["logits_t"]))
+    pooled = ro["pooled"]
+    out = {"spikes": ro["spikes"],
+           "n_spikes": pooled.sum(dim=(1, 2, 3)) * act.to(pooled.dtype)}
+    return new_state, out
+
+
+def _lane_table(dep: Deployment, capacity: int, chunk_slots: int,
+                dev: torch.device) -> tuple:
+    """Geometry checks and ``init_state`` / ``reset_lane`` of a lane table
+    serving ``dep``'s compat key on ``dev``."""
+    cfg = dep.model_cfg
+    p2m_cfg, bb_cfg = cfg.p2m, cfg.backbone
+    if p2m_cfg.n_sub % chunk_slots:
+        raise ValueError(f"chunk_slots={chunk_slots} must divide "
+                         f"n_sub={p2m_cfg.n_sub}")
+    H, W = bb_cfg.input_hw
+    C = p2m_cfg.out_channels
+    s = p2m_cfg.stride
+    hp, wp = H // s // 2, W // s // 2                  # post-pool
+
+    def init_state() -> dict:
+        return {
+            "x": torch.zeros((capacity, H // s, W // s, C), device=dev),
+            "coarse": torch.zeros((capacity, hp, wp, C), device=dev),
+            "mem": snn.spiking_cnn_stream_init(bb_cfg, capacity, dev),
+            "logits": torch.zeros((capacity, bb_cfg.n_classes), device=dev),
+            "n_coarse": torch.zeros((capacity,), dtype=torch.int32,
+                                    device=dev),
+        }
+
+    def reset_lane(state: dict, lane: int) -> dict:
+        """Zero one lane's state in place (a newly admitted stream's
+        precharge; the state tensors are owned by the serving loop)."""
+        for v in (state["x"], state["coarse"], state["logits"],
+                  state["n_coarse"], *state["mem"].values()):
+            v[lane] = 0
+        return state
+
+    def lane_mask(m: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(m, bool), device=dev)
+
+    return init_state, reset_lane, lane_mask
 
 
 def make_stream_fns(dep: Deployment, *, capacity: int, chunk_slots: int,
@@ -130,47 +264,19 @@ def make_stream_fns(dep: Deployment, *, capacity: int, chunk_slots: int,
     ``readout`` return new state dicts.
     """
     dev = resolve_device(device)
-    if fold_mode not in stream_fold_ops.MODES:
-        raise ValueError(f"unknown fold_mode {fold_mode!r} (expected one of "
-                         f"{stream_fold_ops.MODES})")
-    cfg = dep.model_cfg
-    p2m_cfg = cfg.p2m
-    bb_cfg = cfg.backbone
-    if p2m_cfg.n_sub % chunk_slots:
-        raise ValueError(f"chunk_slots={chunk_slots} must divide "
-                         f"n_sub={p2m_cfg.n_sub}")
-    H, W = bb_cfg.input_hw
-    C = p2m_cfg.out_channels
-    s = p2m_cfg.stride
-    hp, wp = H // s // 2, W // s // 2                  # post-pool
+    _check_fold_mode(fold_mode)
+    p2m_cfg, bb_cfg = dep.model_cfg.p2m, dep.model_cfg.backbone
+    init_state, reset_lane, lane_mask = _lane_table(dep, capacity,
+                                                    chunk_slots, dev)
     with torch.no_grad():
         nb = tree_to(entry_numerics(dep), dev)
-
-    def lane_mask(m: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(m, bool), device=dev)
-
-    def init_state() -> dict:
-        return {
-            "x": torch.zeros((capacity, H // s, W // s, C), device=dev),
-            "coarse": torch.zeros((capacity, hp, wp, C), device=dev),
-            "mem": snn.spiking_cnn_stream_init(bb_cfg, capacity, dev),
-            "logits": torch.zeros((capacity, bb_cfg.n_classes), device=dev),
-            "n_coarse": torch.zeros((capacity,), dtype=torch.int32,
-                                    device=dev),
-        }
-
-    def reset_lane(state: dict, lane: int) -> dict:
-        """Zero one lane's state (a newly admitted stream's precharge)."""
-        for v in (state["x"], state["coarse"], state["logits"],
-                  state["n_coarse"], *state["mem"].values()):
-            v[lane] = 0
-        return state
 
     @torch.no_grad()
     def fold(state: dict, frames: torch.Tensor, active: np.ndarray) -> dict:
         """Advance the charge ODE of the ``active`` lanes through one replay
         chunk ``frames`` [capacity, chunk_slots, H, W, 2]."""
-        x = _fold_core(state["x"], frames.to(dev), nb, stride=s,
+        x = _fold_core(state["x"], frames.to(dev), nb,
+                       stride=p2m_cfg.stride,
                        dv_unit=p2m_cfg.analog.dv_unit, mode=fold_mode)
         return {**state, "x": _mask(lane_mask(active), x, state["x"])}
 
@@ -185,26 +291,85 @@ def make_stream_fns(dep: Deployment, *, capacity: int, chunk_slots: int,
         step = bool(np.any(coarse_mask))
         ro = _readout_core(state, nb, analog_cfg=p2m_cfg.analog,
                            bb_cfg=bb_cfg, step_backbone=step)
-        act, cm = lane_mask(active), lane_mask(coarse_mask)
-        coarse = ro["coarse"]
-        new_state = {
-            "x": _mask(act, torch.zeros_like(state["x"]), state["x"]),
-            "coarse": _mask(act, _mask(cm, torch.zeros_like(coarse), coarse),
-                            state["coarse"]),
-            "mem": state["mem"],
-            "logits": state["logits"],
-            "n_coarse": state["n_coarse"] + cm.to(torch.int32),
-        }
-        if step:
-            new_state["mem"] = {k: _mask(cm, v, state["mem"][k])
-                                for k, v in ro["mem2"].items()}
-            new_state["logits"] = state["logits"] + _mask(
-                cm, ro["logits_t"], torch.zeros_like(ro["logits_t"]))
-        pooled = ro["pooled"]
-        out = {"spikes": ro["spikes"],
-               "n_spikes": pooled.sum(dim=(1, 2, 3)) * act.to(pooled.dtype)}
-        return new_state, out
+        return _commit_readout(state, ro, lane_mask(active),
+                               lane_mask(coarse_mask), step)
 
     return StreamFns(init_state=init_state, reset_lane=reset_lane, fold=fold,
-                     readout=readout, in_hw=(H, W),
+                     readout=readout, in_hw=bb_cfg.input_hw,
                      n_classes=bb_cfg.n_classes, device=dev)
+
+
+def served_entries(active: np.ndarray, entry: np.ndarray) -> list[int]:
+    """The bundle slots bound to at least one active lane, ascending."""
+    act = np.asarray(active, bool)
+    return [int(e) for e in np.unique(np.asarray(entry)[act])]
+
+
+def make_multi_stream_fns(dep: Deployment, *, capacity: int,
+                          chunk_slots: int, fold_mode: str = "deposit",
+                          device: str | torch.device | None = None
+                          ) -> MultiStreamFns:
+    """Build the multi-variant fold/readout steps (registry serving).
+    ``dep`` is the engine's anchor entry: it pins the shared geometry (the
+    compat key); the per-lane numerics come with each call as a stacked
+    ``bundle`` and a per-lane ``entry`` index into it.
+
+    For each served entry the steps run the same full-lane-batch program a
+    single-variant engine runs with that entry's numerics (on ``cuda`` one
+    K2 or K3 launch per served entry per chunk), then keep, per lane, the
+    rows of the entry the lane is bound to (the reference's ``lax.map``
+    over entries and per-lane gather, as a loop). No op mixes lanes, so
+    each lane's state is bit-identical to a single-variant serve of its
+    entry. Bundle slots that no active lane is bound to are skipped: the
+    gather would never read their rows, and a fold or readout of an
+    inactive lane is masked away.
+    """
+    dev = resolve_device(device)
+    _check_fold_mode(fold_mode)
+    p2m_cfg, bb_cfg = dep.model_cfg.p2m, dep.model_cfg.backbone
+    init_state, reset_lane, lane_mask = _lane_table(dep, capacity,
+                                                    chunk_slots, dev)
+
+    def bound(active: np.ndarray, entry: np.ndarray, e: int) -> torch.Tensor:
+        return lane_mask(np.asarray(active, bool) & (np.asarray(entry) == e))
+
+    @torch.no_grad()
+    def fold(state: dict, frames: torch.Tensor, active: np.ndarray,
+             entry: np.ndarray, bundle: dict) -> dict:
+        """One replay chunk for every active lane, under its entry's
+        numerics."""
+        frames = frames.to(dev)
+        x = state["x"]
+        for e in served_entries(active, entry):
+            xe = _fold_core(state["x"], frames, take_entry(bundle, e),
+                            stride=p2m_cfg.stride,
+                            dv_unit=p2m_cfg.analog.dv_unit, mode=fold_mode)
+            x = _mask(bound(active, entry, e), xe, x)
+        return {**state, "x": x}
+
+    @torch.no_grad()
+    def readout(state: dict, active: np.ndarray, coarse_mask: np.ndarray,
+                entry: np.ndarray, bundle: dict) -> tuple[dict, dict]:
+        """The T_INTG readout of :func:`make_stream_fns`, each lane under its
+        entry's numerics."""
+        step = bool(np.any(coarse_mask))
+        ro = None
+        for e in served_entries(active, entry):
+            ro_e = _readout_core(state, take_entry(bundle, e),
+                                 analog_cfg=p2m_cfg.analog, bb_cfg=bb_cfg,
+                                 step_backbone=step)
+            if ro is None:
+                ro = ro_e
+                continue
+            sel = bound(active, entry, e)
+            ro = tree_map(lambda new, old: _mask(sel, new, old), ro_e, ro)
+        if ro is None:        # no active lane: every row is masked away
+            ro = _readout_core(state, take_entry(bundle, 0),
+                               analog_cfg=p2m_cfg.analog, bb_cfg=bb_cfg,
+                               step_backbone=step)
+        return _commit_readout(state, ro, lane_mask(active),
+                               lane_mask(coarse_mask), step)
+
+    return MultiStreamFns(init_state=init_state, reset_lane=reset_lane,
+                          fold=fold, readout=readout, in_hw=bb_cfg.input_hw,
+                          n_classes=bb_cfg.n_classes, device=dev)

@@ -1,5 +1,5 @@
 """Deployment handshake: sweep artifact + checkpoint → a servable model
-(``repro.stream.deploy`` in PyTorch, without the adaptation deltas).
+(``repro.stream.deploy`` in PyTorch).
 
 The ``p2m-codesign-sweep/v3`` artifact is the menu: :func:`select_record`
 picks the record to deploy. The checkpoint is the weights:
@@ -9,7 +9,9 @@ block embeds the record and the full model config, so
 :func:`load_deployment` rebuilds the :class:`Deployment` from it alone.
 Checkpoints are the reference's format (``checkpoint/store``), so either
 package loads what the other wrote. :func:`offline_forward` is the
-batched reference forward the online engine is held to.
+batched reference forward the online engine is held to. The adaptation
+delta checkpoints (:func:`save_adapt_delta` and its loaders) carry one
+adapted serving lane's learned deltas back into a servable deployment.
 """
 from __future__ import annotations
 
@@ -263,16 +265,6 @@ def _check_against_artifact(dep: Deployment,
         f"artifact — the artifact and checkpoint are from different runs")
 
 
-def compat_digest(dep: Deployment) -> str:
-    """Digest of the serving geometry (the reference registry's compat key:
-    the model config minus the leak block and the default threshold)."""
-    d = model_config_to_dict(dep.model_cfg)
-    d["p2m"].pop("leak", None)
-    d["p2m"].pop("v_threshold", None)
-    key = json.dumps(d, sort_keys=True, separators=(",", ":"), default=float)
-    return hashlib.sha256(key.encode()).hexdigest()[:12]
-
-
 # ---------------------------------------------------------------------------
 # record selection and deploying from a sweep
 # ---------------------------------------------------------------------------
@@ -350,6 +342,152 @@ def deploy_from_sweep(result: Any, model_cfg: P2MModelConfig, record: dict,
                      record=record, protocol=result.protocol,
                      meta=dict(meta or {}))
     return save_deployment(directory, dep)
+
+
+# ---------------------------------------------------------------------------
+# adaptation delta checkpoints (stream/adapt.py → new registry entries)
+# ---------------------------------------------------------------------------
+
+ADAPT_DELTA_SCHEMA = "p2m-stream-adapt-delta/v1"
+
+
+def host_effective_weights(dep: Deployment) -> np.ndarray:
+    """``dep``'s quantized layer-1 weights as host float32, by the
+    reference's order of operations in numpy (clip, divide by the level
+    step, round half to even, scale, then the straight-through
+    ``w + (q - w)``). The same bits on every device, so a delta harvested
+    on the card validates and applies on the CPU, in either package."""
+    a_cfg = dep.model_cfg.p2m.analog
+    w = dep.params["p2m"]["w"]
+    w = np.asarray(w.detach().cpu().numpy() if isinstance(w, torch.Tensor)
+                   else w, np.float32)
+    lim = np.float32(a_cfg.w_clip)
+    w = np.minimum(np.maximum(w, -lim), lim)
+    scale = np.float32(a_cfg.w_clip / (a_cfg.weight_levels // 2))
+    q = np.round(w / scale) * scale
+    return w + (q - w)
+
+
+def deployment_digest(dep: Deployment) -> str:
+    """Content digest of a deployment as an adaptation base: the full model
+    config, the exact quantized layer-1 weights and the comparator
+    threshold that per-lane deltas are relative to. It equals the
+    reference's digest of the same deployment."""
+    h = hashlib.sha256()
+    h.update(json.dumps(model_config_to_dict(dep.model_cfg),
+                        sort_keys=True, default=float).encode())
+    h.update(host_effective_weights(dep).tobytes())
+    h.update(np.float32(dep.coeffs.v_threshold).tobytes())
+    return h.hexdigest()[:16]
+
+
+def save_adapt_delta(directory: str | Path, base: Deployment, *,
+                     dw, dtheta: float, base_name: str = "default",
+                     base_uid: int = 0, lane: int = 0, n_updates: int = 0,
+                     rule: str = "surrogate",
+                     meta: dict | None = None) -> Path:
+    """Write one adapted lane's deltas as a committed delta checkpoint.
+
+    ``dw``/``dtheta`` are relative to ``base``'s quantized layer-1 weights
+    and deployed threshold (the lane served ``quantize(w_q_base + dw)`` at
+    ``theta_base + dtheta``, as ``StreamEngine.harvest`` returns them). The
+    extras stamp the base's registry identity and content digest, which
+    :func:`load_adapt_delta` validates."""
+    dw = np.asarray(dw.detach().cpu().numpy() if isinstance(dw, torch.Tensor)
+                    else dw, np.float32)
+    w_q = host_effective_weights(base)
+    if dw.shape != w_q.shape:
+        raise ValueError(
+            f"dw shape {dw.shape} does not match the base's layer-1 "
+            f"weights {tuple(w_q.shape)}")
+    tree = {"dw": dw, "dtheta": np.float32(dtheta)}
+    extra = {
+        "delta_schema": ADAPT_DELTA_SCHEMA,
+        "base": {"name": base_name, "uid": int(base_uid),
+                 "digest": deployment_digest(base)},
+        "lane": int(lane),
+        "n_updates": int(n_updates),
+        "rule": rule,
+        "meta": dict(meta or {}),
+    }
+    return store.save_checkpoint(directory, 0, tree, extra)
+
+
+def load_adapt_delta(directory: str | Path, base: Deployment, *,
+                     expect_uid: int | None = None) -> dict:
+    """Load a delta checkpoint (written by either package) and validate it
+    against ``base``. Raises ``ValueError`` when it is not a delta, its
+    base stamp is incomplete, the stamped digest is not ``base``'s, the
+    stamped uid is not ``expect_uid`` (the base was hot-swapped since the
+    harvest), or ``dw`` has the wrong shape."""
+    tree, extra = store.load_checkpoint(directory)
+    if extra.get("delta_schema") != ADAPT_DELTA_SCHEMA:
+        raise ValueError(
+            f"{directory} is not an adaptation delta checkpoint "
+            f"(extra.delta_schema={extra.get('delta_schema')!r}; "
+            f"expected {ADAPT_DELTA_SCHEMA!r})")
+    stamped = extra.get("base") or {}
+    missing = [k for k in ("name", "uid", "digest") if k not in stamped]
+    if missing:
+        raise ValueError(f"{directory} delta checkpoint base stamp is "
+                         f"corrupt: missing {missing}")
+    digest = deployment_digest(base)
+    if stamped["digest"] != digest:
+        raise ValueError(
+            f"{directory} delta was learned against base digest "
+            f"{stamped['digest']} but the offered deployment digests to "
+            f"{digest} — applying it would adapt the wrong weights")
+    if expect_uid is not None and int(stamped["uid"]) != int(expect_uid):
+        raise ValueError(
+            f"{directory} delta is stamped for base uid {stamped['uid']} "
+            f"but the live registration is uid {expect_uid} — the base "
+            f"entry was hot-swapped since this delta was harvested")
+    dw = np.asarray(tree["dw"], np.float32)
+    w_q = host_effective_weights(base)
+    if dw.shape != w_q.shape:
+        raise ValueError(
+            f"{directory} delta dw shape {dw.shape} does not match the "
+            f"base's layer-1 weights {tuple(w_q.shape)}")
+    return {"dw": dw, "dtheta": float(tree["dtheta"]),
+            "base_name": stamped["name"], "base_uid": int(stamped["uid"]),
+            "lane": int(extra.get("lane", 0)),
+            "n_updates": int(extra.get("n_updates", 0)),
+            "rule": extra.get("rule"), "meta": dict(extra.get("meta") or {})}
+
+
+def apply_adapt_delta(base: Deployment, delta: dict, *,
+                      label_suffix: str = "+adapt") -> Deployment:
+    """Fold a validated delta into ``base``: a new :class:`Deployment` on
+    ``base.device`` with raw layer-1 weights ``w_q_base + dw`` (which
+    quantize to what the adapted lane served) and comparator threshold
+    ``theta_base + dtheta`` pinned as the leak-config override. Its compat
+    key is its base's, so it registers beside it."""
+    cfg = base.model_cfg
+    w_q = host_effective_weights(base)
+    new_theta = float(base.coeffs.v_threshold) + float(delta["dtheta"])
+    model_cfg = replace(cfg, p2m=replace(
+        cfg.p2m, leak=replace(cfg.p2m.leak, v_threshold=new_theta)))
+    variant = dict(base.record.get("variant") or {})
+    if "v_threshold" in variant:
+        variant["v_threshold"] = new_theta
+    record = {
+        **base.record,
+        "label": f"{base.record.get('label')}{label_suffix}",
+        "variant": variant,
+        "adapted": {"base_name": delta.get("base_name", "default"),
+                    "base_uid": int(delta.get("base_uid", 0)),
+                    "lane": int(delta.get("lane", 0)),
+                    "n_updates": int(delta.get("n_updates", 0)),
+                    "rule": delta.get("rule"),
+                    "dw_norm": float(np.linalg.norm(delta["dw"]))},
+    }
+    w = w_q + np.asarray(delta["dw"], np.float32)
+    params = {"p2m": {**base.params["p2m"],
+                      "w": torch.from_numpy(w).to(base.device)},
+              "backbone": base.params["backbone"]}
+    return Deployment(model_cfg=model_cfg, params=params,
+                      bn_state=base.bn_state, record=record,
+                      protocol=base.protocol, meta=dict(base.meta))
 
 
 def train_and_deploy(out_dir: str | Path, *,

@@ -23,8 +23,19 @@ Predictions are identical to unpaced replay on the same seed: offers,
 admission and shedding follow the window counter, never the wall clock.
 The report is the reference's ``p2m-stream-serving/v5`` artifact.
 
-The deployment registry, online adaptation and lane sharding of the
-reference engine come with later slices of the port.
+**Registry mode** (``StreamEngine(Registry(...))``, ``stream/registry.py``)
+serves a catalog of compat-equal variants from one lane table: streams
+request a variant at offer time, admission binds each lane to an entry
+(rejecting unresolvable requests), and ``register``/``retire`` hot-swap
+entries mid-serve without touching lanes bound to other entries.
+
+**Adaptation mode** (``adapt=AdaptConfig(...)``, ``stream/adapt.py``) gives
+each lane persistent weight/threshold deltas that a local rule updates at
+every labeled coarse-window readout; :meth:`StreamEngine.harvest` exports
+them (``deploy.save_adapt_delta``).
+
+``executor=`` takes a ``stream/shard.LaneExecutor``; only ``devices=1``
+runs in the port.
 """
 from __future__ import annotations
 
@@ -43,10 +54,24 @@ from repro_torch.data.binning import bin_chunks, slot_us_for
 from repro_torch.data.formats import EventChunk
 from repro_torch.data.sources import EventSource
 from repro_torch.serve.slots import ShardedSlots
-from repro_torch.stream.accumulator import make_stream_fns
-from repro_torch.stream.deploy import Deployment, compat_digest
+from repro_torch.stream.accumulator import (entry_numerics,
+                                            make_multi_stream_fns,
+                                            make_stream_fns, stack_entries)
+from repro_torch.stream.adapt import (AdaptConfig, adapt_entry_numerics,
+                                      lane_stats, make_adapt_fns)
+from repro_torch.stream.deploy import Deployment, tree_to
+from repro_torch.stream.registry import (Registry, RegistryEntry,
+                                         compat_digest, compat_key)
+from repro_torch.stream.shard import LaneExecutor
 
 STATS_SCHEMA = "p2m-stream-serving/v5"
+
+
+class EntryTableFull(RuntimeError):
+    """The engine's fixed-size per-entry param table has no reclaimable
+    slot for a newly requested registry entry (every slot still has lanes
+    bound to it). Admission rejects the stream; raise ``max_entries`` to
+    co-serve more variants at once."""
 
 
 def stream_generator(seed: int, stream_id: int) -> torch.Generator:
@@ -91,6 +116,9 @@ class _Lane:
     t_cursor_us: int = 0
     n_misses: int = 0
     worst_margin_ms: float | None = None
+    entry_name: str = "default"   # registry entry bound at admission
+    entry_uid: int = 0
+    entry_slot: int = 0           # engine param-table slot of that entry
 
 
 class _BinWorker:
@@ -178,13 +206,27 @@ class ServingReport:
     paced: bool = False
     offered_rate: float | None = None
     max_pending: int | None = None
+    devices: int = 1              # lane-mesh shards (1 = unsharded)
     bin_workers: int = 1
+    padded_capacity: int = 0      # lane axis after mesh padding
+    lanes_per_shard: int = 0
+    per_shard_admitted: list[int] = field(default_factory=list)
     n_offered: int = 0
     n_admitted: int = 0
     n_shed: int = 0               # rejected: pending queue was full
+    # rejected at admission: variant request unresolvable (no match,
+    # ambiguous, incompatible compat key, or entry table full)
+    n_rejected: int = 0
     n_deferred: int = 0           # admitted later than their offer window
+    # registry view: compat digest of the serving geometry, param-table
+    # size, and one counter row per (name, uid) ever admitted
     registry_compat: str = ""
+    registry_max_entries: int = 1
+    entry_rows: list[dict] = field(default_factory=list)
     max_open_streams: int = 0     # peak concurrently-open replay iterators
+    # adaptation view (None = served frozen): rule, update count, per-lane
+    # delta rows, accuracy over the first and second half of the streams
+    adaptation: dict | None = None
     n_misses: int = 0             # fleet-wide deadline misses (paced)
     miss_margin_ms: list[float] = field(default_factory=list)
     readout_s: list[float] = field(default_factory=list)
@@ -222,13 +264,6 @@ class ServingReport:
         lat = lambda xs, q: (float(np.percentile(xs, q) * 1e3)  # noqa: E731
                              if xs else 0.0)
         wall = max(self.wall_s, 1e-9)
-        n_correct = sum(r.correct for r in self.results)
-        n_events = sum(r.n_events for r in self.results)
-        # the single deployment is the artifact's one registry row
-        row = {"name": "default", "uid": 0, "n_admitted": self.n_admitted,
-               "n_finished": len(self.results), "n_correct": n_correct,
-               "n_misses": self.n_misses, "n_events": n_events,
-               "n_readouts": self.total_readouts}
         return {
             "schema": STATS_SCHEMA,
             "deployed": self.deployed,
@@ -240,11 +275,11 @@ class ServingReport:
             "accuracy": self.accuracy,
             "paced": self.paced,
             "sharding": {
-                "devices": 1,
+                "devices": self.devices,
                 "bin_workers": self.bin_workers,
-                "padded_capacity": self.capacity,
-                "lanes_per_shard": self.capacity,
-                "per_shard_admitted": [self.n_admitted],
+                "padded_capacity": self.padded_capacity,
+                "lanes_per_shard": self.lanes_per_shard,
+                "per_shard_admitted": list(self.per_shard_admitted),
             },
             "admission": {
                 "offered_rate": self.offered_rate,
@@ -252,23 +287,26 @@ class ServingReport:
                 "n_offered": self.n_offered,
                 "n_admitted": self.n_admitted,
                 "n_shed": self.n_shed,
-                "n_rejected": 0,
+                "n_rejected": self.n_rejected,
                 "n_deferred": self.n_deferred,
                 "max_open_streams": self.max_open_streams,
             },
             "registry": {
                 "compat": self.registry_compat,
-                "max_entries": 1,
-                "entries": ([{**row,
-                              "accuracy": (n_correct / len(self.results)
-                                           if self.results else 0.0),
-                              "events_per_s": n_events / wall}]
-                            if self.n_admitted else []),
+                "max_entries": self.registry_max_entries,
+                "entries": [
+                    {**row,
+                     "accuracy": (row["n_correct"] / row["n_finished"]
+                                  if row["n_finished"] else 0.0),
+                     "events_per_s": row["n_events"] / wall}
+                    for row in self.entry_rows
+                ],
             },
-            "adaptation": {"enabled": False, "rule": None, "lr_w": 0.0,
-                           "lr_theta": 0.0, "n_updates": 0,
-                           "accuracy_pre": None, "accuracy_post": None,
-                           "lanes": []},
+            "adaptation": (self.adaptation if self.adaptation is not None
+                           else {"enabled": False, "rule": None,
+                                 "lr_w": 0.0, "lr_theta": 0.0,
+                                 "n_updates": 0, "accuracy_pre": None,
+                                 "accuracy_post": None, "lanes": []}),
             "deadlines": self.deadline_stats(),
             "streams": [asdict(r) for r in self.results],
             "latency_ms": {
@@ -282,7 +320,8 @@ class ServingReport:
             "throughput": {
                 "wall_s": self.wall_s,
                 "events_per_s": self.total_events / wall,
-                "events_per_s_per_device": self.total_events / wall,
+                "events_per_s_per_device": (self.total_events / wall
+                                            / max(self.devices, 1)),
                 "readouts_per_s": self.total_readouts / wall,
                 "streams_per_s": len(self.results) / wall,
                 "layer1_spikes_per_s": self.total_layer1_spikes / wall,
@@ -291,41 +330,80 @@ class ServingReport:
 
 
 class StreamEngine:
-    """Continuous-batching online inference over one deployment.
+    """Continuous-batching online inference over one deployment, or over a
+    :class:`~repro_torch.stream.registry.Registry` of compat-equal
+    deployments with per-stream variant selection.
 
     ``capacity`` is the fixed lane count of the batched steps;
     ``chunks_per_window`` how many raw-event chunks arrive per T_INTG window
     (must divide ``n_sub``; default one per fine sub-slot). ``fold_mode``
-    picks the streaming-fold kernel (``"deposit"`` or ``"mac"``).
-    ``prefetch=False`` bins chunks inline on the serving thread instead of
-    on ``bin_workers`` host threads (the folded numbers are identical).
-    The engine runs on ``device`` (default ``cuda``).
+    picks the streaming-fold kernel (``"deposit"`` or ``"mac"``); ``None``
+    means ``"deposit"``, or with ``adapt`` the adaptation's own per-lane
+    fold (a kernel mode with ``adapt`` raises). ``prefetch=False`` bins
+    chunks inline on the serving thread instead of on ``bin_workers`` host
+    threads (the folded numbers are identical). The engine runs on
+    ``device`` (default ``cuda``).
+
+    **Registry mode**: the first registered entry anchors the serving
+    geometry (compat key); per-lane numerics live in a table of
+    ``max_entries`` slots whose stacked bundle is an argument of the
+    multi-variant steps, so ``register``/``retire`` mid-serve re-stacks it
+    without touching lanes bound to other entries. A retired entry stays
+    in its slot until the last lane bound to it releases. Admission
+    resolves each stream's request (``serve(variants=...)``); an
+    unresolvable one (no match, ambiguous, other compat key, table full)
+    rejects the stream. Mixed-variant serving is bit-identical per stream
+    to single-variant serving of each stream's entry.
+
+    **Adaptation** (``adapt``): per-lane deltas persist across serve()
+    calls (``adapt_state``); a lane's deltas reset when it rebinds to
+    another entry uid, its traces at every admission.
     """
 
-    def __init__(self, dep: Deployment, *, capacity: int = 4,
+    def __init__(self, dep: "Deployment | Registry", *, capacity: int = 4,
                  chunks_per_window: int | None = None,
-                 fold_mode: str = "deposit", prefetch: bool = True,
-                 bin_workers: int = 1,
+                 fold_mode: str | None = None, prefetch: bool = True,
+                 bin_workers: int | None = None,
                  device: str | torch.device | None = None,
-                 adapt=None, executor=None):
-        if not isinstance(dep, Deployment):
-            raise NotImplementedError(
-                "registry serving (stream/registry.py) comes with a later "
-                "slice of the port; pass one Deployment")
-        if adapt is not None:
-            raise NotImplementedError(
-                "online adaptation (stream/adapt.py) comes with a later "
-                "slice of the port")
-        if executor is not None:
-            raise NotImplementedError(
-                "lane sharding (stream/shard.py) comes with a later slice "
-                "of the port")
-        if bin_workers < 1:
-            raise ValueError(f"bin_workers must be >= 1, got {bin_workers}")
-        cfg = dep.model_cfg.p2m
-        self.dep = dep
+                 executor: LaneExecutor | None = None,
+                 max_entries: int | None = None,
+                 default_entry: str | None = None,
+                 adapt: AdaptConfig | None = None):
+        if isinstance(dep, Registry):
+            if len(dep) == 0:
+                raise ValueError(
+                    "registry is empty — register at least one entry "
+                    "before building a serving engine")
+            self.registry: Registry | None = dep
+            anchor = next(dep.entries())
+            self.compat = anchor.compat
+            self.dep = anchor.dep
+            self.default_entry = default_entry
+            self.max_entries = (max(len(dep) + 1, 2)
+                                if max_entries is None else max_entries)
+            if self.max_entries < len(dep):
+                raise ValueError(
+                    f"max_entries={self.max_entries} cannot hold the "
+                    f"{len(dep)} already-registered entries")
+        else:
+            if max_entries is not None or default_entry is not None:
+                raise ValueError("max_entries/default_entry require a "
+                                 "registry-backed engine")
+            self.registry = None
+            self.dep = dep
+            self.compat = compat_key(dep)
+            self.default_entry = None
+            self.max_entries = 1
+        cfg = self.dep.model_cfg.p2m
+        dep = self.dep
         self.capacity = capacity
-        self.bin_workers = bin_workers
+        self.executor = executor or LaneExecutor()
+        self.padded_capacity = self.executor.padded_size(capacity)
+        self.lanes_per_shard = self.padded_capacity // self.executor.devices
+        if bin_workers is not None and bin_workers < 1:
+            raise ValueError(f"bin_workers must be >= 1, got {bin_workers}")
+        self.bin_workers = (self.executor.devices if bin_workers is None
+                            else bin_workers)
         self.n_sub = cfg.n_sub
         self.chunks_per_window = (self.n_sub if chunks_per_window is None
                                   else chunks_per_window)
@@ -338,10 +416,98 @@ class StreamEngine:
         self.chunk_us = self.slot_us * self.chunk_slots
         self.group = dep.model_cfg.coarsen_group()
         self.prefetch = prefetch
-        self.fns = make_stream_fns(dep, capacity=capacity,
-                                   chunk_slots=self.chunk_slots,
-                                   fold_mode=fold_mode, device=device)
+        self.adapt = adapt
+        lanes = dict(capacity=self.padded_capacity,
+                     chunk_slots=self.chunk_slots, device=device)
+        if adapt is not None:
+            self.fold_mode = fold_mode
+            self.fns = make_adapt_fns(dep, adapt=adapt, fold_mode=fold_mode,
+                                      registry=self.registry is not None,
+                                      **lanes)
+            # per-lane deltas and traces, resident across serve() calls so
+            # a lane keeps learning over stream turnover and harvest works
+            # after the run
+            self.adapt_state = self.fns.init_adapt()
+            # entry uid each lane's deltas were learned against (-1 = never
+            # admitted): rebinding to another uid voids them
+            self._lane_entry_uid = np.full((self.padded_capacity,), -1,
+                                           np.int64)
+            self._lane_base: list[Deployment | None] = \
+                [None] * self.padded_capacity
+            self._lane_base_name = ["default"] * self.padded_capacity
+            self._labels = np.full((self.padded_capacity,), -1, np.int32)
+        else:
+            self.fold_mode = fold_mode or "deposit"
+            make = (make_stream_fns if self.registry is None
+                    else make_multi_stream_fns)
+            self.fns = make(dep, fold_mode=self.fold_mode, **lanes)
         self.device = self.fns.device
+        if self.registry is not None:
+            # fixed-size param table: slot i holds the numerics of one
+            # (name, uid) registration; refcounts count the resident lanes
+            # bound to it, so a hot-swap keeps a retired entry's weights
+            # until its last lane drains. Unused slots hold the anchor's
+            # numerics as shape placeholders.
+            anchor_nb = self._entry_numerics(dep)
+            self._entry_slots: list[tuple[str, int] | None] = \
+                [None] * self.max_entries
+            self._entry_refs = [0] * self.max_entries
+            self._entry_nbs = [anchor_nb] * self.max_entries
+            self._bundle = stack_entries(self._entry_nbs)
+            self._entry_of = np.zeros((self.padded_capacity,), np.int32)
+
+    def _entry_numerics(self, dep: Deployment) -> dict:
+        """One table slot's numerics on the engine's device (with the leak
+        coefficients when adapting)."""
+        if self.adapt is not None:
+            return adapt_entry_numerics(dep, self.device)
+        with torch.no_grad():
+            return tree_to(entry_numerics(dep), self.device)
+
+    # -- registry param-table bookkeeping ------------------------------
+    def _slot_stale(self, slot: int) -> bool:
+        """True when the slot's (name, uid) is no longer live in the
+        registry (retired, or the name re-registered under a new uid)."""
+        key = self._entry_slots[slot]
+        if key is None:
+            return True
+        name, uid = key
+        return name not in self.registry or self.registry.get(name).uid != uid
+
+    def _bind_entry(self, entry: RegistryEntry) -> int:
+        """Bind one more lane to ``entry``, installing its numerics on first
+        use (re-stacking the bundle). A free slot is taken stale-first,
+        then live-but-unused; :class:`EntryTableFull` when every slot still
+        has lanes bound to it."""
+        key = (entry.name, entry.uid)
+        for i, k in enumerate(self._entry_slots):
+            if k == key:
+                self._entry_refs[i] += 1
+                return i
+        victim = None
+        for i in range(self.max_entries):
+            if self._entry_refs[i] == 0 and self._slot_stale(i):
+                victim = i
+                break
+        if victim is None:  # evict a live-but-unused cached entry
+            for i in range(self.max_entries):
+                if self._entry_refs[i] == 0:
+                    victim = i
+                    break
+        if victim is None:
+            raise EntryTableFull(
+                f"all {self.max_entries} entry slots have resident lanes "
+                f"(bound: {[k for k in self._entry_slots if k]}) — raise "
+                f"max_entries to co-serve more variants")
+        self._entry_slots[victim] = key
+        self._entry_nbs[victim] = self._entry_numerics(entry.dep)
+        self._entry_refs[victim] = 1
+        self._bundle = stack_entries(self._entry_nbs)
+        return victim
+
+    def _unbind_entry(self, slot: int) -> None:
+        assert self._entry_refs[slot] > 0
+        self._entry_refs[slot] -= 1
 
     # ------------------------------------------------------------------
     def open_stream(self, source: EventSource, gen: torch.Generator,
@@ -382,7 +548,7 @@ class StreamEngine:
 
     def _worker_of(self, lane: int) -> int:
         """Owning bin worker of a lane: contiguous balanced slices."""
-        return lane * self.bin_workers // self.capacity
+        return lane * self.bin_workers // self.padded_capacity
 
     def _partition(self, occupied: list[tuple[int, _Lane]]
                    ) -> list[list[tuple[int, _Lane]]]:
@@ -400,10 +566,11 @@ class StreamEngine:
 
     def _assemble(self, parts: list[list[tuple[int, np.ndarray]]]
                   ) -> torch.Tensor:
-        """Workers' per-lane blocks → the fold's [capacity, chunk_slots, H,
-        W, 2] batch on the device (unoccupied lanes stay zero)."""
+        """Workers' per-lane blocks → the fold's [padded_capacity,
+        chunk_slots, H, W, 2] batch on the device (unoccupied lanes stay
+        zero)."""
         h, w = self.fns.in_hw
-        frames = np.zeros((self.capacity, self.chunk_slots, h, w, 2),
+        frames = np.zeros((self.padded_capacity, self.chunk_slots, h, w, 2),
                           np.float32)
         for part in parts:
             for lane_i, block in part:
@@ -413,19 +580,41 @@ class StreamEngine:
     # ------------------------------------------------------------------
     def serve(self, source: EventSource, n_streams: int, *, seed: int = 0,
               paced: bool = False, offered_rate: float | None = None,
-              max_pending: int | None = None, log=None) -> ServingReport:
+              max_pending: int | None = None, variants=None,
+              on_window=None, log=None) -> ServingReport:
         """Serve ``n_streams`` replayed samples of ``source``.
 
         ``offered_rate`` trickles the offers at that many streams/s on the
         replay clock (default: all up front); ``max_pending`` bounds the
         pending queue and sheds offers beyond it (``None`` = unbounded).
         Stream ``i`` replays from :func:`stream_generator` ``(seed, i)``.
+
+        ``variants`` (registry mode) carries each stream's variant request
+        (an entry name, a matcher dict, or ``None`` for ``default_entry``)
+        as a sequence of ``n_streams`` or a callable ``stream_id ->
+        request``, resolved at admission against the live registry;
+        unresolvable requests reject the stream (``n_rejected``).
+        ``on_window(window)`` runs at the top of every window iteration, on
+        the serving thread, before that window's admissions: the hook for
+        a hot-swap (``register``/``retire``) mid-serve.
         """
         if offered_rate is not None and offered_rate <= 0:
             raise ValueError(f"offered_rate must be > 0 streams/s, got "
                              f"{offered_rate}")
         if max_pending is not None and max_pending < 0:
             raise ValueError(f"max_pending must be >= 0, got {max_pending}")
+        if variants is None:
+            req_of = lambda sid: None                         # noqa: E731
+        elif self.registry is None:
+            raise ValueError("variants requires a registry-backed engine")
+        elif callable(variants):
+            req_of = variants
+        else:
+            vlist = list(variants)
+            if len(vlist) != n_streams:
+                raise ValueError(f"variants has {len(vlist)} requests for "
+                                 f"n_streams={n_streams}")
+            req_of = lambda sid: vlist[sid]                   # noqa: E731
         t_intg_s = self.dep.t_intg_ms * 1e-3
         offers_per_window = (None if offered_rate is None
                              else offered_rate * t_intg_s)
@@ -434,7 +623,8 @@ class StreamEngine:
             return (0 if offers_per_window is None
                     else int(math.floor(i / offers_per_window)))
 
-        slots: ShardedSlots[_Lane] = ShardedSlots(self.capacity)
+        slots: ShardedSlots[_Lane] = ShardedSlots(self.capacity,
+                                                  self.executor.devices)
         pending: deque[tuple[int, int]] = deque()  # (stream_id, offered_w)
         results: list[StreamResult] = []
         report = ServingReport(
@@ -443,18 +633,51 @@ class StreamEngine:
             t_intg_ms=self.dep.t_intg_ms, wall_s=0.0, total_events=0,
             total_readouts=0, total_layer1_spikes=0.0,
             device=str(self.device), paced=paced, offered_rate=offered_rate,
-            max_pending=max_pending, bin_workers=self.bin_workers,
-            registry_compat=compat_digest(self.dep))
+            max_pending=max_pending, devices=self.executor.devices,
+            bin_workers=self.bin_workers,
+            padded_capacity=self.padded_capacity,
+            lanes_per_shard=self.lanes_per_shard,
+            per_shard_admitted=[0] * self.executor.devices,
+            registry_compat=compat_digest(self.compat),
+            registry_max_entries=self.max_entries)
+        # per-(name, uid) counter rows, created at first admission and
+        # shared with report.entry_rows
+        rows: dict[tuple[str, int], dict] = {}
+
+        def row_of(lane: _Lane) -> dict:
+            k = (lane.entry_name, lane.entry_uid)
+            if k not in rows:
+                rows[k] = {"name": k[0], "uid": k[1], "n_admitted": 0,
+                           "n_finished": 0, "n_correct": 0, "n_misses": 0,
+                           "n_events": 0, "n_readouts": 0}
+                report.entry_rows.append(rows[k])
+            return rows[k]
+
+        def extra() -> tuple:
+            """Registry mode: the per-lane entry slots and the param
+            bundle ride along as step arguments."""
+            return (() if self.registry is None
+                    else (self._entry_of.copy(), self._bundle))
 
         # warm-up: one fold + readout on a throwaway state (builds the
         # kernels and fills the library caches) so the latency percentiles
-        # measure steady-state serving
+        # measure steady-state serving; registry engines fold every lane
+        # under slot 0, so the warm-up folds launch one kernel too
         h, w = self.fns.in_hw
-        idle = np.zeros((self.capacity,), bool)
-        ws = self.fns.fold(self.fns.init_state(),
-                           torch.zeros((self.capacity, self.chunk_slots, h, w,
-                                        2)), idle)
-        ws, _ = self.fns.readout(ws, idle, ~idle)
+        idle = np.zeros((self.padded_capacity,), bool)
+        wframes = torch.zeros((self.padded_capacity, self.chunk_slots, h, w,
+                               2))
+        wx = (() if self.registry is None else
+              (np.zeros((self.padded_capacity,), np.int32), self._bundle))
+        if self.adapt is None:
+            ws = self.fns.fold(self.fns.init_state(), wframes,
+                               idle if self.registry is None else ~idle, *wx)
+            ws, _ = self.fns.readout(ws, idle, ~idle, *wx)
+        else:
+            ws, wa = self.fns.fold(self.fns.init_state(),
+                                   self.fns.init_adapt(), wframes, idle, *wx)
+            ws, _, _ = self.fns.readout(ws, wa, idle, idle,
+                                        np.full_like(self._labels, -1), *wx)
         ws["logits"].cpu()
         state = self.fns.init_state()
         pool = _BinPool(self.bin_workers) if self.prefetch else None
@@ -464,6 +687,9 @@ class StreamEngine:
         try:
             while (next_offer < n_streams or pending
                    or not slots.is_empty()):
+                # ---- ops hook (hot-swap point) -------------------------
+                if on_window is not None:
+                    on_window(window)
                 # ---- offers arriving at this window boundary ----------
                 while (next_offer < n_streams
                        and offer_window(next_offer) <= window):
@@ -480,6 +706,22 @@ class StreamEngine:
                 # ---- lazy admission into free lanes -------------------
                 while pending and not slots.is_full():
                     sid, offered_w = pending.popleft()
+                    entry = None
+                    if self.registry is not None:
+                        # resolve against the live registry; unresolvable
+                        # requests are rejected, never guessed
+                        try:
+                            entry = self.registry.resolve(
+                                req_of(sid), compat=self.compat,
+                                default=self.default_entry)
+                            slot_e = self._bind_entry(entry)
+                        except (LookupError, ValueError, TypeError,
+                                EntryTableFull) as e:
+                            report.n_rejected += 1
+                            if log is not None:
+                                log(f"[admission] rejected stream {sid} at "
+                                    f"window {window}: {e}")
+                            continue
                     lane = self.open_stream(source,
                                             stream_generator(seed, sid), sid)
                     lane.offered_window = offered_w
@@ -487,12 +729,22 @@ class StreamEngine:
                     if window > offered_w:
                         report.n_deferred += 1
                     lane_i = slots.admit(lane)
+                    if entry is not None:
+                        lane.entry_name = entry.name
+                        lane.entry_uid = entry.uid
+                        lane.entry_slot = slot_e
+                        self._entry_of[lane_i] = slot_e
                     state = self.fns.reset_lane(state, lane_i)
+                    if self.adapt is not None:
+                        self._admit_adapt(lane_i, lane, entry)
                     report.n_admitted += 1
+                    row_of(lane)["n_admitted"] += 1
+                    report.per_shard_admitted[slots.shard_of(lane_i)] += 1
                 report.max_open_streams = max(report.max_open_streams,
                                               slots.n_occupied)
                 occupied = list(slots.occupied())
                 active = np.asarray(slots.active_mask())
+                ex = extra()
                 # ---- paced: hold until this window's wall-clock start -
                 if paced:
                     delay = (t_start + window * t_intg_s
@@ -515,16 +767,26 @@ class StreamEngine:
                              if pool is not None else
                              [self._bin_part(source, ls)
                               for ls in parts_by_worker])
-                    state = self.fns.fold(state, self._assemble(parts),
-                                          active)
+                    frames = self._assemble(parts)
+                    if self.adapt is None:
+                        state = self.fns.fold(state, frames, active, *ex)
+                    else:
+                        state, self.adapt_state = self.fns.fold(
+                            state, self.adapt_state, frames, active, *ex)
                     report.fold_s.append(time.perf_counter() - t0)
                 # ---- readout at the T_INTG boundary -------------------
-                coarse_mask = np.zeros((self.capacity,), bool)
+                coarse_mask = np.zeros((self.padded_capacity,), bool)
                 for lane_i, lane in occupied:
                     coarse_mask[lane_i] = \
                         (lane.windows_done + 1) % self.group == 0
                 t0 = time.perf_counter()
-                state, out = self.fns.readout(state, active, coarse_mask)
+                if self.adapt is None:
+                    state, out = self.fns.readout(state, active, coarse_mask,
+                                                  *ex)
+                else:
+                    state, self.adapt_state, out = self.fns.readout(
+                        state, self.adapt_state, active, coarse_mask,
+                        self._labels.copy(), *ex)
                 n_spikes = out["n_spikes"].cpu().numpy()  # window sync point
                 t_done = time.perf_counter()
                 report.readout_s.append(t_done - t0)
@@ -534,6 +796,8 @@ class StreamEngine:
                 for lane_i, lane in occupied:
                     lane.windows_done += 1
                     report.total_readouts += 1
+                    row = row_of(lane)
+                    row["n_readouts"] += 1
                     report.total_layer1_spikes += float(n_spikes[lane_i])
                     if margin_ms is not None:
                         report.miss_margin_ms.append(margin_ms)
@@ -543,6 +807,7 @@ class StreamEngine:
                         if margin_ms > 0:
                             lane.n_misses += 1
                             report.n_misses += 1
+                            row["n_misses"] += 1
                     if lane.windows_done < lane.n_windows:
                         continue
                     # stream complete: finalize rate-decoded prediction
@@ -551,6 +816,9 @@ class StreamEngine:
                               / max(n_c, 1))
                     pred = int(np.argmax(logits))
                     report.total_events += lane.n_events
+                    row["n_finished"] += 1
+                    row["n_correct"] += int(pred == lane.label)
+                    row["n_events"] += lane.n_events
                     results.append(StreamResult(
                         stream_id=lane.stream_id, label=lane.label,
                         prediction=pred, correct=pred == lane.label,
@@ -560,8 +828,13 @@ class StreamEngine:
                         admitted_window=lane.admitted_window,
                         finished_window=window, n_misses=lane.n_misses,
                         miss_margin_max_ms=lane.worst_margin_ms,
+                        entry=lane.entry_name, entry_uid=lane.entry_uid,
                         logits=[float(v) for v in logits]))
                     slots.release(lane_i)
+                    if self.adapt is not None:
+                        self._labels[lane_i] = -1
+                    if self.registry is not None:
+                        self._unbind_entry(lane.entry_slot)
                     if log is not None:
                         log(f"[stream {lane.stream_id}] label={lane.label} "
                             f"pred={pred} readouts={lane.windows_done} "
@@ -573,4 +846,66 @@ class StreamEngine:
             if pool is not None:
                 pool.close()
         report.wall_s = time.perf_counter() - t_start
+        if self.adapt is not None:
+            report.adaptation = self._adaptation_block(results)
         return report
+
+    def _admit_adapt(self, lane_i: int, lane: _Lane,
+                     entry: RegistryEntry | None) -> None:
+        """Adaptation bookkeeping of an admission: learned deltas persist
+        across streams on the lane (it models one physical sensor) but are
+        void against another base entry uid."""
+        uid = entry.uid if entry is not None else 0
+        if self._lane_entry_uid[lane_i] == uid:
+            self.fns.reset_lane_transient(self.adapt_state, lane_i)
+        else:
+            self.fns.reset_lane_full(self.adapt_state, lane_i)
+        self._lane_entry_uid[lane_i] = uid
+        self._lane_base[lane_i] = entry.dep if entry is not None else self.dep
+        self._lane_base_name[lane_i] = lane.entry_name
+        self._labels[lane_i] = lane.label
+
+    def _adaptation_block(self, results: list[StreamResult]) -> dict:
+        """The v5 artifact's ``adaptation`` block: rule, learning rates,
+        update count, per-lane delta rows, and the accuracy over the first
+        and second half of this run's streams in finish order (a cheap
+        online signal that adaptation helps)."""
+        lanes = lane_stats(self.adapt_state)
+
+        def acc(rs: list[StreamResult]) -> float | None:
+            return sum(r.correct for r in rs) / len(rs) if rs else None
+
+        half = len(results) // 2
+        return {"enabled": True, "rule": self.adapt.rule,
+                "lr_w": self.adapt.lr_w, "lr_theta": self.adapt.lr_theta,
+                "n_updates": sum(r["n_updates"] for r in lanes),
+                "accuracy_pre": acc(results[:half]),
+                "accuracy_post": acc(results[half:]), "lanes": lanes}
+
+    # ------------------------------------------------------------------
+    def harvest(self, lane: int) -> dict:
+        """One adapted lane's learned deltas and base identity, ready for
+        ``deploy.save_adapt_delta`` and re-registration. The deltas are
+        relative to the base entry's quantized layer-1 weights and deployed
+        threshold, as the lane served them. A lane that never updated
+        harvests zero deltas; a lane that never served raises."""
+        if self.adapt is None:
+            raise ValueError("engine was built without adapt= — nothing "
+                             "to harvest")
+        if not 0 <= lane < self.padded_capacity:
+            raise ValueError(f"lane {lane} out of range "
+                             f"[0, {self.padded_capacity})")
+        base = self._lane_base[lane]
+        if base is None:
+            raise ValueError(f"lane {lane} never served a stream — no "
+                             f"base entry to delta against")
+        ast = self.adapt_state
+        return {
+            "lane": lane,
+            "dw": ast["dw"][lane].cpu().numpy(),
+            "dtheta": float(ast["dtheta"][lane]),
+            "n_updates": int(ast["n_updates"][lane]),
+            "base_name": self._lane_base_name[lane],
+            "base_uid": int(self._lane_entry_uid[lane]),
+            "base": base,
+        }

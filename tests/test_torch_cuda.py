@@ -742,3 +742,122 @@ def test_cuda_deploy_from_sweep_serves_as_the_plain_fold(cuda_device,
     for key in (("cuda", "deposit"), ("cuda", "mac")):
         np.testing.assert_allclose(logits[key], want, rtol=0, atol=1e-4,
                                    err_msg=str(key))
+
+
+# ---------------------------------------------------------------------------
+# registry serving through K2/K3, and adaptation, on the card
+# ---------------------------------------------------------------------------
+
+def _awake(params, gain=2.0):
+    """Double the BN scales and fc0 weights of a fresh backbone, which
+    otherwise goes silent (every logit 0, a vacuous comparison)."""
+    bb = params["backbone"]
+    for k, v in bb.items():
+        if k.startswith("bn"):
+            v["scale"].mul_(gain)
+    bb["fc0"]["w"].mul_(gain)
+    return params
+
+
+def _circuit_deps(device, coarse_ms=None):
+    """reduced() deployments of the three paper circuits (c at mismatch
+    0.06), fresh and seeded, on ``device``."""
+    import dataclasses
+    from repro_torch.configs import p2m_dvs
+    from repro_torch.core.leakage import CircuitConfig
+    from repro_torch.stream import deploy
+    cfg, _ = p2m_dvs.reduced()
+    if coarse_ms is not None:
+        cfg = dataclasses.replace(cfg, coarse_window_ms=coarse_ms)
+    out = {}
+    for seed, (name, leak) in enumerate((
+            ("a", dict(circuit=CircuitConfig.BASIC)),
+            ("b", dict(circuit=CircuitConfig.SWITCH)),
+            ("c", dict(circuit=CircuitConfig.NULLIFIED,
+                       null_mismatch=0.06)))):
+        c = dataclasses.replace(cfg, p2m=dataclasses.replace(
+            cfg.p2m, leak=dataclasses.replace(cfg.p2m.leak, **leak)))
+        dep = deploy.fresh_deployment(c, seed=seed, device=device)
+        _awake(dep.params)
+        out[name] = dep
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode, counter", [("deposit", "fold"),
+                                           ("mac", "fold_mac")])
+def test_cuda_registry_serve_bit_identical_to_singles(cuda_device, mode,
+                                                      counter):
+    """A mixed-variant serve (three circuits round-robin on 3 lanes)
+    through K2 or K3: every stream's logits bit-identical to a
+    single-variant serve of its entry on the card, and one launch per
+    served entry per chunk (+ the warm-up's)."""
+    from repro_torch.data import sources
+    from repro_torch.stream.engine import StreamEngine
+    from repro_torch.stream.registry import Registry
+    deps = _circuit_deps("cuda")
+    reg = Registry()
+    for name, dep in deps.items():
+        reg.register(name, dep)
+    src = sources.resolve_dataset("synthetic-gesture", hw=24,
+                                  duration_ms=1000.0)
+    names = list(deps)
+    eng = StreamEngine(reg, capacity=3, fold_mode=mode, device="cuda")
+    before = dict(sf.LAUNCHES)
+    rep = eng.serve(src, 6, seed=2, variants=[names[i % 3] for i in range(6)])
+    torch.cuda.synchronize()
+    launched = {k: sf.LAUNCHES[k] - before[k] for k in sf.LAUNCHES}
+    windows = {}
+    for r in rep.results:
+        for w in range(r.admitted_window, r.finished_window):
+            windows.setdefault(w, set()).add(r.entry_uid)
+    expected = eng.chunks_per_window * sum(map(len, windows.values())) + 1
+    assert launched[counter] == expected and \
+        sum(launched.values()) == expected, (launched, expected)
+    for name, dep in deps.items():
+        single = {r.stream_id: r for r in StreamEngine(
+            dep, capacity=3, fold_mode=mode, device="cuda").serve(
+                src, 6, seed=2).results}
+        for r in rep.results:
+            if r.entry == name:
+                np.testing.assert_array_equal(r.logits,
+                                              single[r.stream_id].logits)
+    assert np.abs([r.logits for r in rep.results]).max() > 0.05
+
+
+@pytest.mark.cuda
+def test_cuda_adaptation_matches_cpu(cuda_device):
+    """Surrogate adaptation (lr 0.5, reduced() with a 100 ms coarse
+    window, 4 streams on 2 lanes) on the card and on the CPU: equal update
+    counts, deltas within 1e-4 of their largest element, logits within
+    1e-4; with lr 0 the card's adapting serve (cuDNN per-lane fold) stays
+    within 1e-4 of its frozen K2 serve, predictions equal."""
+    from repro_torch.data import sources
+    from repro_torch.stream.adapt import AdaptConfig
+    from repro_torch.stream.engine import StreamEngine
+    src = sources.resolve_dataset("synthetic-gesture", hw=24,
+                                  duration_ms=1000.0)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        dep = _circuit_deps(device, coarse_ms=100.0)["c"]
+        eng = StreamEngine(dep, capacity=2, device=device,
+                           adapt=AdaptConfig(lr_w=0.5, lr_theta=0.01))
+        rep = eng.serve(src, 4, seed=3)
+        runs[device] = (rep, {k: v.cpu().numpy()
+                              for k, v in eng.adapt_state.items()})
+    (crep, cst), (prep, pst) = runs["cuda"], runs["cpu"]
+    np.testing.assert_array_equal(cst["n_updates"], pst["n_updates"])
+    assert pst["n_updates"].min() > 0
+    for key in ("dw", "dtheta"):
+        scale = np.abs(pst[key]).max()
+        assert scale > 0 and np.abs(cst[key] - pst[key]).max() <= 1e-4 * scale
+    by = lambda rep: np.array([r.logits for r in sorted(  # noqa: E731
+        rep.results, key=lambda r: r.stream_id)])
+    np.testing.assert_allclose(by(crep), by(prep), rtol=0, atol=1e-4)
+    dep = _circuit_deps("cuda", coarse_ms=100.0)["c"]
+    frozen = StreamEngine(dep, capacity=2, device="cuda").serve(src, 4, seed=3)
+    off = StreamEngine(dep, capacity=2, device="cuda",
+                       adapt=AdaptConfig(lr_w=0.0)).serve(src, 4, seed=3)
+    np.testing.assert_allclose(by(off), by(frozen), rtol=0, atol=1e-4)
+    assert [r.prediction for r in off.results] == \
+        [r.prediction for r in frozen.results]
