@@ -89,6 +89,16 @@ no ``ok`` line):
                 artifact and served to the recorded streams through K3
                 and K2 (counters zeroed before and read after each), the
                 serving artifact through tools/check_stream_stats.py;
+  6d. files   — file-backed data at full width (``phase_files``): a
+                DVS128 fixture the port writes (5 recordings x 4 trials,
+                AEDAT 3.1 + labels CSVs, under build/, removed after),
+                ``sample_batch`` cold and warm through the frame cache
+                (equal, counts equal to the AEDAT windows), the fast-grid
+                sweep on its train split with its val split as eval, the
+                frozen 10 ms record's val batch in kernel (K1) and scan
+                mode, 16 recordings served through K3 and K2 (counters
+                zeroed before and read after each), stream 0 held to the
+                offline forward;
   7. physics parity — the reduced() model evaluated in kernel mode on
                 cuda and on the CPU from the same seeded batch; then 3
                 train steps at reduced() on cuda and on the CPU (loss,
@@ -111,7 +121,9 @@ The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --only registry,adapt`` runs phases 1, 2, 4 and
-the named ones of 5b-5d, and prints no ``ok`` line.
+the named ones of 5b-5d, and prints no ``ok`` line; ``--only files``
+runs phases 1, 2 and 6d (with registry or adapt also named, 6d comes
+before phase 4).
 
 ``python3 chip_smoke.py --measure-tree ROOT`` runs none of this: it times
 K1, the MAC-mode fold_chunk and K4 as the checkout at ROOT has them (see
@@ -876,15 +888,16 @@ def phase_lm_parity(torch) -> None:
 
 
 class Prerecorded:
-    """The synthetic source's streams drawn once, in stream-id order, with
-    the generators the engine would give them, and replayed to every
-    serve: each stream is found by its generator's seed, so stream ``i``
-    replays recording ``i`` whatever order the engine opens streams in
-    (a rejected stream is never opened). Drawing up front keeps event
-    synthesis (host work) out of the serving wall time."""
+    """A source's streams drawn once, in stream-id order, with the
+    generators the engine would give them, and replayed to every serve:
+    each stream is found by its generator's seed, so stream ``i`` replays
+    recording ``i`` whatever order the engine opens streams in (a
+    rejected stream is never opened). Drawing (or reading the files) up
+    front keeps host work out of the serving wall time. ``index`` pins a
+    file-backed source's sample for each stream id."""
 
     def __init__(self, source, n_streams: int, seed: int, chunk_us: int,
-                 slot_us: int, stream_generator):
+                 slot_us: int, stream_generator, index=None):
         for attr in ("name", "height", "width", "n_classes", "duration_ms",
                      "sensor_hw"):
             setattr(self, attr, getattr(source, attr))
@@ -893,8 +906,9 @@ class Prerecorded:
         for sid in range(n_streams):
             gen = stream_generator(seed, sid)
             key = gen.initial_seed()
+            pin = {} if index is None else {"index": index(sid)}
             label, chunks = source.iter_event_chunks(
-                gen, chunk_us=chunk_us, slot_us=slot_us)
+                gen, chunk_us=chunk_us, slot_us=slot_us, **pin)
             self.recordings[key] = (label, list(chunks))
 
     def replay(self) -> "Prerecorded":
@@ -1342,6 +1356,28 @@ def check_sweep_artifact(art: dict, labels: list, n_records: int) -> None:
         fail("sweep artifact retention is not finite")
 
 
+def print_sweep_cells(tag: str, results: dict, scfg) -> None:
+    """Per protocol and cell: the record's train time per step (host
+    clock) and the share of it that ``sample_batch`` took on the host, eval
+    seconds, peak device memory."""
+    for proto, res in results.items():
+        for (t_ms, ns), tm in res.timings.items():
+            rec = next(r for r in res.records if r["t_intg_ms"] == t_ms)
+            step_ms = rec["train_time_per_step_s"] * 1e3
+            sample_ms = tm["train_sample_s"] / scfg.finetune_steps * 1e3
+            print(f"[{tag}] {proto} T_INTG {t_ms:g} ms: train "
+                  f"{step_ms:.1f} ms/step (host clock, {scfg.finetune_steps} "
+                  f"steps of {len(res.labels)} variants), of which "
+                  f"sample_batch {sample_ms:.1f} ms/step on the host "
+                  f"({100 * sample_ms / step_ms:.1f} %); eval "
+                  f"{tm['eval_s']:.3f} s (sample_batch "
+                  f"{tm['eval_sample_s']:.3f} s); peak device memory "
+                  f"{tm['peak_bytes'] / 2 ** 30:.2f} GiB")
+        peak = max(tm["peak_bytes"] for tm in res.timings.values())
+        print(f"[{tag}] {proto}: peak device memory {peak / 2 ** 30:.2f} "
+              f"GiB (max_memory_allocated over its cells)")
+
+
 def phase_sweep(torch, counters, events, labels) -> dict:
     """The co-design sweep at full width: configs/p2m_dvs CONFIG and DATA,
     fresh seeded weights (``awake``), ``fast_grid()`` (circuits a, b,
@@ -1384,20 +1420,7 @@ def phase_sweep(torch, counters, events, labels) -> dict:
     if any(launched.values()):
         fail(f"the sweep launched kernels: {launched}")
     labels_g = list(results["frozen"].labels)
-    for proto, res in results.items():
-        for (t_ms, ns), tm in res.timings.items():
-            rec = next(r for r in res.records if r["t_intg_ms"] == t_ms)
-            print(f"[sweep] {proto} T_INTG {t_ms:g} ms: train "
-                  f"{rec['train_time_per_step_s'] * 1e3:.1f} ms/step (host "
-                  f"clock, {scfg.finetune_steps} steps of "
-                  f"{len(labels_g)} variants), of which sample_batch "
-                  f"{tm['train_sample_s'] / scfg.finetune_steps * 1e3:.1f} "
-                  f"ms/step on the host; eval {tm['eval_s']:.3f} s "
-                  f"(sample_batch {tm['eval_sample_s']:.3f} s); peak device "
-                  f"memory {tm['peak_bytes'] / 2 ** 30:.2f} GiB")
-        peak = max(tm["peak_bytes"] for tm in res.timings.values())
-        print(f"[sweep] {proto}: peak device memory {peak / 2 ** 30:.2f} GiB "
-              f"(max_memory_allocated over its cells)")
+    print_sweep_cells("sweep", results, scfg)
     art = sweep.protocols_artifact(results, extra_meta={"wall_s": wall})
     out = ROOT / "build" / "chip_smoke" / "codesign_grid_fast.json"
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -1503,6 +1526,267 @@ def phase_deploy(torch, sf, sweep_out: dict, src) -> dict:
     print(f"[deploy] fold=mac vs deposit max |logit diff| {diff:.3g}; "
           f"{gate.stdout.strip()}")
     print(f"[deploy] main-path launches: {launches}")
+    return launches
+
+
+# [files]: the DVS128 fixture the port writes (fixture_user04 hashes to
+# val), its sampling batch, and the replay guarantee of
+# tests/test_streaming.py (online readout vs the offline forward)
+FILES_RECORDINGS, FILES_TRIALS, FILES_B = 5, 4, 4
+REPLAY_RTOL = REPLAY_ATOL = 1e-5
+FILES_FREE_BYTES = 8 * 2 ** 30    # fixture + the 10 ms frame cache, ~2 GB
+
+
+def dir_bytes(root: Path) -> int:
+    return sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
+
+
+def disk_free(path: Path) -> int:
+    import shutil
+    return shutil.disk_usage(path).free
+
+
+def phase_files(torch, sf, pc, counters) -> dict:
+    """File-backed data at full width (configs/p2m_dvs.CONFIG, 128×128):
+    (1) ``make_dvs128_fixture`` writes 5 recordings × 4 trials of 2000 ms
+    under build/; (2) ``DVSGestureSource(hw=128)`` train and val, one
+    ``sample_batch`` at T_INTG 10 ms, n_sub 4, batch 4 cold (parse and
+    bin) and warm (the frame cache), warm equal to cold, each sample's
+    count equal to its AEDAT's events in its window; (3) the fast-grid
+    sweep (both protocols, ``SWEEP_STEPS``) on the train split with
+    ``resolve_eval_dataset``'s val source, no kernel launched, the
+    artifact checked and its ``data`` block dvs128 / val; (4) the frozen
+    10 ms record deployed, a val batch evaluated in kernel mode (K1) and
+    scan mode; (5) 16 fixture recordings served through K3 and K2, every
+    kernel counter zeroed just before and read just after each of (4)
+    and (5), and stream 0's logits held to ``offline_forward`` on the
+    ``bin_chunks`` frames of its recording. Returns the launches of K1,
+    K2 and K3. The directory is removed at the end."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.configs import p2m_dvs
+    from repro_torch.core import codesign, sweep
+    from repro_torch.data import binning, fixtures, formats, sources
+    from repro_torch.stream import deploy
+    from repro_torch.stream.engine import StreamEngine, stream_generator
+    cfg = p2m_dvs.CONFIG
+    n_sub, t_ms = cfg.p2m.n_sub, cfg.p2m.t_intg_ms
+    hw = cfg.backbone.input_hw[0]
+    base = ROOT / "build" / "chip_smoke"
+    base.mkdir(parents=True, exist_ok=True)
+    free = disk_free(base)
+    if free < FILES_FREE_BYTES:
+        fail(f"[files] needs {FILES_FREE_BYTES / 2 ** 30:.0f} GiB free under "
+             f"{base}, has {free / 2 ** 30:.1f}")
+    root = Path(tempfile.mkdtemp(prefix="files-", dir=base))
+    launches = {}
+    try:
+        # 1. the fixture
+        t0 = time.perf_counter()
+        fixtures.make_dvs128_fixture(root, n_recordings=FILES_RECORDINGS,
+                                     trials_per_recording=FILES_TRIALS)
+        secs = time.perf_counter() - t0
+        recordings = {}
+        for f in sorted(root.glob("*.aedat")):
+            recordings[f.name] = formats.concat_chunks(
+                formats.read_aedat31(f))
+            print(f"[files] {f.name}: {f.stat().st_size} bytes, "
+                  f"{len(recordings[f.name])} events")
+        print(f"[files] wrote {FILES_RECORDINGS} recordings x {FILES_TRIALS} "
+              f"trials of 2000 ms ({dir_bytes(root)} bytes with the labels "
+              f"CSVs, {sum(map(len, recordings.values()))} events) in "
+              f"{secs:.1f} s")
+
+        # 2. sampling, cold and warm
+        train = sources.DVSGestureSource(root, hw=hw, split="train")
+        val, split = sources.resolve_eval_dataset("dvs128", hw=hw,
+                                                  data_root=str(root))
+        if split != "val" or val is None:
+            fail(f"[files] the val split is empty ({split})")
+        print(f"[files] DVSGestureSource(hw={hw}): train "
+              f"{len(train.samples)} samples, val {len(val.samples)} "
+              f"({sorted({x.split_id for x in val.samples})})")
+        n_total = train.n_slots(t_ms) * n_sub
+        print(f"[files] one sample at T_INTG {t_ms:g} ms is [{n_total}, "
+              f"{hw}, {hw}, 2] float32 = {n_total * hw * hw * 2 * 4} bytes "
+              f"in the cache; {free} bytes free under build/")
+        got = {}
+        for when in ("cold", "warm"):
+            t0 = time.perf_counter()
+            got[when] = train.sample_batch(torch.Generator().manual_seed(0),
+                                           FILES_B, t_ms, n_sub)
+            got[when + "_ms"] = (time.perf_counter() - t0) * 1e3
+        cache_bytes = dir_bytes(root / sources.CACHE_DIRNAME)
+        (ev, labels), (ev_w, labels_w) = got["cold"], got["warm"]
+        if not (torch.equal(ev, ev_w) and torch.equal(labels, labels_w)):
+            fail("[files] warm frames differ from cold frames")
+        idx = torch.randint(0, len(train.samples), (FILES_B,),
+                            generator=torch.Generator().manual_seed(0))
+        for b, i in enumerate(idx.tolist()):
+            smp = train.samples[i]
+            rec = recordings[smp.split_id]
+            stop = min(smp.t1_us, smp.t0_us + n_total * binning.slot_us_for(
+                t_ms, n_sub))
+            want = int(((rec.t >= smp.t0_us) & (rec.t < stop)).sum())
+            have = float(ev[b].double().sum())
+            if have != want or int(labels[b]) != smp.label:
+                fail(f"[files] sample {smp.sample_id}: {have} counted, its "
+                     f"AEDAT holds {want} events in the window")
+        del recordings
+        print(f"[files] sample_batch(B={FILES_B}, T_INTG {t_ms:g} ms, n_sub "
+              f"{n_sub}) {tuple(ev.shape)}: cold {got['cold_ms']:.1f} ms "
+              f"(parse + bin + cache write), warm {got['warm_ms']:.1f} ms "
+              f"(the cache), host clock; cache {cache_bytes} bytes on disk; "
+              f"warm equal to cold; counts equal to the AEDAT windows "
+              f"({float(ev.double().sum()):.0f} events)")
+
+        # 3. the sweep on the files
+        grid = sweep.fast_grid()
+        scfg = codesign.SweepConfig(t_intg_grid_ms=grid.t_intg_grid_ms,
+                                    dataset="dvs128", data_root=str(root),
+                                    **SWEEP_STEPS)
+        init = awake_init(codesign)
+        zero(counters)
+        t0 = time.perf_counter()
+        try:
+            results = sweep.run_protocols(
+                train, cfg, scfg, grid, protocols=("frozen", "unfrozen"),
+                eval_data=val, keep_params=True, device="cuda",
+                log=lambda m: print(f"  {m}"))
+        finally:
+            codesign.model_init = init
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if any(read(counters).values()):
+            fail(f"[files] the sweep launched kernels: {read(counters)}")
+        print_sweep_cells("files", results, scfg)
+        art = sweep.protocols_artifact(results, extra_meta={
+            "wall_s": wall,
+            "data": {"name": train.name, "dataset": "dvs128",
+                     "data_root": str(root), "hw": train.height,
+                     "n_classes": train.n_classes,
+                     "duration_ms": train.duration_ms, "eval_split": split}})
+        path = base / "codesign_grid_files.json"
+        path.write_text(json.dumps(art, indent=2))
+        art = json.loads(path.read_text())
+        labels_g = list(results["frozen"].labels)
+        check_sweep_artifact(art, labels_g, 12)
+        if (art["data"]["dataset"], art["data"]["eval_split"],
+                art["data"]["n_classes"]) != ("dvs128", "val", 11):
+            fail(f"[files] sweep artifact data block {art['data']}")
+        for r in art["records"]:
+            print(f"[files] {r['protocol']:8s} {r['label']:9s} "
+                  f"{r['t_intg_ms']:6g} ms: acc {r['accuracy']:.3f} bw "
+                  f"{r['bandwidth_norm']:.3f}x energy "
+                  f"{r['energy_improvement']:.3f}x input events "
+                  f"{r['input_events']:.0f}")
+        print(f"[files] sweep artifact {path.relative_to(ROOT)}: 12 records "
+              f"checked, data {art['data']['dataset']} / eval split "
+              f"{art['data']['eval_split']}; wall {wall:.1f} s, no kernel "
+              f"launched")
+
+        # 4. the deployed 10 ms record's physics eval on a val batch
+        rec = deploy.select_record(results["frozen"].records,
+                                   protocol="frozen", t_intg_ms=t_ms)
+        ckpt = base / "ckpt_files"
+        deploy.deploy_from_sweep(results["frozen"], cfg, rec, ckpt,
+                                 meta={"dataset": "dvs128",
+                                       "sensor_hw": list(train.sensor_hw)})
+        dep = deploy.load_deployment(ckpt, device="cuda", artifact=path)
+        del results
+        ev_v, lab_v = val._gather(list(range(FILES_B)), t_ms, n_sub)
+        evals = {}
+        for mode in ("kernel", "scan"):
+            fn = codesign.make_eval_fn(with_mode(dep.model_cfg, mode),
+                                       device="cuda")
+            fn(dep.params, dep.bn_state, ev_v, lab_v)  # allocator, cuDNN
+            zero(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics, aux = fn(dep.params, dep.bn_state, ev_v, lab_v)
+            torch.cuda.synchronize()
+            evals[mode] = (metrics, aux, time.perf_counter() - t0,
+                           read(counters))
+        (mk, ak, wk, ck), (ms, as_, ws, cs) = evals["kernel"], evals["scan"]
+        for key in ("spikes/p2m", "events/in", "macs/p2m"):
+            if float(ak[key]) != float(as_[key]):
+                fail(f"[files] eval aux {key} kernel {float(ak[key])} vs "
+                     f"scan {float(as_[key])}")
+        diff = check_logits(mk["logits"].cpu().numpy(),
+                            ms["logits"].cpu().numpy(),
+                            "[files] val batch kernel vs scan")
+        if ck.get("p2m_conv") != 1 or sum(ck.values()) != 1 \
+                or any(cs.values()):
+            fail(f"[files] eval launches kernel {ck}, scan {cs}: expected "
+                 f"one p2m_conv in kernel mode and none in scan mode")
+        launches["p2m_conv"] = ck["p2m_conv"]
+        print(f"[files] {rec['label']} at {t_ms:g} ms (acc "
+              f"{rec['accuracy']:.3f}) on {FILES_B} val windows "
+              f"{tuple(ev_v.shape)}: kernel {wk * 1e3:.1f} ms, scan "
+              f"{ws * 1e3:.1f} ms, spikes/p2m {float(ak['spikes/p2m']):.0f} "
+              f"equal, max |logit diff| {diff:.3g}, launches {ck}")
+
+        # 5. serving fixture recordings through K3 and K2
+        src_all = sources.resolve_dataset("dvs128", hw=hw,
+                                          data_root=str(root), split="all")
+        n_rec = len(src_all.samples)
+        reports = {}
+        for mode, counter in (("mac", "fold_mac"), ("deposit", "fold")):
+            eng = StreamEngine(dep, capacity=N_LANES, fold_mode=mode,
+                               device="cuda")
+            src = Prerecorded(src_all, N_LANES, 0, eng.chunk_us, eng.slot_us,
+                              stream_generator, index=lambda i: i % n_rec)
+            rep, counts = serve_counted(torch, sf, eng, src, N_LANES)
+            expected = expected_fold_launches(rep, eng.chunks_per_window)
+            if len(rep.results) != N_LANES:
+                fail(f"[files] {mode}: {len(rep.results)} of {N_LANES} "
+                     f"streams finished")
+            if counts[counter] != expected or \
+                    sum(counts.values()) != expected:
+                fail(f"[files] {mode}: launches {counts}, expected "
+                     f"{expected} of {counter} and none of any other")
+            gate = stats_gate(rep.to_artifact(), f"stream_serving_files_"
+                              f"{mode}.json", N_LANES, src_all, "dvs128")
+            print(f"[files] fold={mode}: {len(rep.results)} fixture "
+                  f"recordings, {rep.total_events} events, "
+                  f"{serve_line(rep)}, launches {counts}; {gate}")
+            launches[counter] = counts[counter]
+            reports[mode] = rep
+        diff = check_logits(
+            [r.logits for r in sorted(reports["mac"].results,
+                                      key=lambda r: r.stream_id)],
+            [r.logits for r in sorted(reports["deposit"].results,
+                                      key=lambda r: r.stream_id)],
+            "[files] fold=mac vs deposit")
+        n_slots = src_all.n_slots(t_ms)
+        frames = binning.bin_chunks(
+            [src_all.sample_events(0)], n_total=n_slots * n_sub,
+            slot_us=binning.slot_us_for(t_ms, n_sub),
+            sensor_hw=src_all.sensor_hw, out_hw=(hw, hw))
+        off = deploy.offline_forward(dep, torch.from_numpy(frames.reshape(
+            1, n_slots, n_sub, hw, hw, 2)))["logits"][0].cpu().numpy()
+        for mode, rep in reports.items():
+            r = next(x for x in rep.results if x.stream_id == 0)
+            got = np.asarray(r.logits)
+            err = np.abs(got - off) - REPLAY_RTOL * np.abs(off)
+            if (err > REPLAY_ATOL).any() or r.prediction != int(
+                    np.argmax(off)) or r.n_readouts != n_slots \
+                    or r.label != src_all.samples[0].label:
+                fail(f"[files] fold={mode}: stream 0 online vs offline "
+                     f"forward: max |diff| {np.abs(got - off).max()}, "
+                     f"prediction {r.prediction} vs {int(np.argmax(off))}, "
+                     f"{r.n_readouts} readouts")
+            print(f"[files] fold={mode}: stream 0 "
+                  f"({src_all.samples[0].sample_id}) online vs "
+                  f"offline_forward on bin_chunks "
+                  f"frames: max |logit diff| {np.abs(got - off).max():.3g} "
+                  f"(rtol {REPLAY_RTOL:g}, atol {REPLAY_ATOL:g}), "
+                  f"{r.n_readouts} readouts, prediction {r.prediction}")
+        print(f"[files] fold=mac vs deposit max |logit diff| {diff:.3g}; "
+              f"main-path launches {launches}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     return launches
 
 
@@ -1662,10 +1946,11 @@ def expected_fold_launches(report, chunks_per_window: int) -> int:
     return chunks_per_window * sum(map(len, windows.values())) + 1
 
 
-def stats_gate(art: dict, name: str, n_streams: int, src) -> str:
+def stats_gate(art: dict, name: str, n_streams: int, src,
+               dataset: str = "synthetic-gesture") -> str:
     """Write ``art`` under build/chip_smoke/ and pass it through
     tools/check_stream_stats.py; its summary line."""
-    art["data"] = {"dataset": "synthetic-gesture", "hw": src.height,
+    art["data"] = {"dataset": dataset, "hw": src.height,
                    "n_classes": src.n_classes,
                    "duration_ms": src.duration_ms}
     path = ROOT / "build" / "chip_smoke" / name
@@ -2147,8 +2432,9 @@ def main() -> int:
         SRC = Path(sys.argv[2]).resolve() / "src"
     if sys.argv[1:2] == ["--only"]:
         ONLY = set(sys.argv[2].split(","))
-        if not ONLY <= {"registry", "adapt"}:
-            fail(f"--only takes registry and/or adapt, got {sys.argv[2]}")
+        if not ONLY <= {"registry", "adapt", "files"}:
+            fail(f"--only takes registry, adapt and/or files, got "
+                 f"{sys.argv[2]}")
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              f"the root of a checkout")
@@ -2184,9 +2470,24 @@ def main() -> int:
     from repro_torch.configs import p2m_dvs
     from repro_torch.core import codesign, leakage
     from repro_torch.data import events as ev_mod
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.lif import lif
+    from repro_torch.kernels.p2m_conv import p2m_conv as pc
+    from repro_torch.kernels.ssd import ssd as sd
     from repro_torch.kernels.stream_fold import stream_fold as sf
     from repro_torch.stream import deploy
     cfg = p2m_dvs.CONFIG
+    all_counters = (pc.LAUNCHES, lif.LAUNCHES, sf.LAUNCHES, fa.LAUNCHES,
+                    sd.LAUNCHES)
+    if "files" in ONLY:
+        t0 = time.perf_counter()
+        phase_files(torch, sf, pc, all_counters)
+        print(f"[files] phase {time.perf_counter() - t0:.1f} s")
+        ONLY.discard("files")
+        if not ONLY:
+            print(f"[done] --only files in {time.perf_counter() - t_all:.1f}"
+                  f" s (no ok line)")
+            return 0
     # --only: none of the physics batch, the kernel timings, or the
     # phases after the slice but the ones named
     if not ONLY:
@@ -2206,20 +2507,16 @@ def main() -> int:
         state = deploy.tree_to(state, torch.device("cuda"))
 
         # 3. kernels against their plain versions
-        from repro_torch.kernels.lif import lif
         from repro_torch.kernels.lif.ref import lif_ref
         from repro_torch.kernels.p2m_conv import ops as conv_ops
-        from repro_torch.kernels.p2m_conv import p2m_conv as pc
         from repro_torch.kernels.stream_fold import ref
         flush, write_flush = l2_flushers(torch)
         rows = phase_kernels(torch, sf, ref, flush, write_flush)
         k1_rows = phase_p2m_conv(torch, conv_ops, pc, events, params["p2m"],
                                  cfg.p2m, leakage.paper_circuits(), flush)
         lif_rows = phase_lif(torch, lif, lif_ref, flush)
-        from repro_torch.kernels.flash_attention import flash_attention as fa
         from repro_torch.kernels.flash_attention import ops as fa_ops
         from repro_torch.kernels.flash_attention import ref as fa_ref
-        from repro_torch.kernels.ssd import ssd as sd
         from repro_torch.kernels.ssd.ref import ssd_ref
         fa_rows = phase_flash_attention(torch, fa_ops, fa_ref, flush)
         ssd_rows = phase_ssd(torch, sd, ssd_ref, flush)
@@ -2319,17 +2616,13 @@ def main() -> int:
 
     # 6b. the training step at full width, on the same batch
     t0 = time.perf_counter()
-    train = phase_train(torch, cfg, events, labels,
-                        (pc.LAUNCHES, lif.LAUNCHES, sf.LAUNCHES, fa.LAUNCHES,
-                         sd.LAUNCHES))
+    train = phase_train(torch, cfg, events, labels, all_counters)
     print(f"[train] phase {time.perf_counter() - t0:.1f} s")
 
     # 6c. the co-design sweep at full width (both protocols), then
     # deploying and serving a checkpoint that it trained
     t0 = time.perf_counter()
-    sweep_out = phase_sweep(torch, (pc.LAUNCHES, lif.LAUNCHES, sf.LAUNCHES,
-                                    fa.LAUNCHES, sd.LAUNCHES),
-                            events, labels)
+    sweep_out = phase_sweep(torch, all_counters, events, labels)
     print(f"[sweep] phase {time.perf_counter() - t0:.1f} s")
     del events
     torch.cuda.empty_cache()
@@ -2337,6 +2630,12 @@ def main() -> int:
     phase_deploy(torch, sf, sweep_out, src)
     print(f"[deploy] phase {time.perf_counter() - t0:.1f} s")
     del sweep_out
+    torch.cuda.empty_cache()
+
+    # 6d. file-backed data at full width: fixture, cache, sweep, eval, serve
+    t0 = time.perf_counter()
+    files = phase_files(torch, sf, pc, all_counters)
+    print(f"[files] phase {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     # 7. the physics eval on cuda and on the CPU, at reduced()
@@ -2368,7 +2667,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/stream_fold.cu",
-            "replaces": replaces, "launches": launches[counter],
+            "replaces": replaces,
+            "launches": launches[counter] + files[counter],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
@@ -2379,7 +2679,7 @@ def main() -> int:
             "name": row["name"], "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}",
             "replaces": f"src/repro/kernels/{replaces}",
-            "launches": phys[row["name"]],
+            "launches": phys[row["name"]] + files.get(row["name"], 0),
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}})
     for row, arch, source, replaces in (

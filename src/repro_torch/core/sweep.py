@@ -793,10 +793,10 @@ def paper_setup(fast: bool = False, hw: int = 16,
                 dataset: str = "synthetic-gesture",
                 data_root: str | None = None):
     """The reference's small defaults: an event source (the synthetic
-    generators; file-backed names raise in this port) and the P²M model
-    sized to it. Short-recording datasets shrink the backbone coarse
-    window to the stream duration and drop T_INTG points that no longer
-    fit. Returns (data, model, sweep_cfg, grid)."""
+    generators, or ``dvs128`` / ``nmnist`` under ``data_root``) and the
+    P²M model sized to it. Short-recording datasets shrink the backbone
+    coarse window to the stream duration and drop T_INTG points that no
+    longer fit. Returns (data, model, sweep_cfg, grid)."""
     from repro_torch.core.codesign import P2MModelConfig, SweepConfig
     from repro_torch.core.p2m_layer import P2MConfig
     from repro_torch.core.snn import SpikingCNNConfig

@@ -1,6 +1,7 @@
 """Online streaming inference launcher for the PyTorch port: serve live
-synthetic event streams through one P²M deployment with continuous
-batching, and write the ``p2m-stream-serving/v5`` stats artifact.
+event streams (synthetic, or replayed from DVS128-Gesture / N-MNIST
+files) through one P²M deployment with continuous batching, and write
+the ``p2m-stream-serving/v5`` stats artifact.
 
 The deployment is one of:
 
@@ -14,8 +15,13 @@ The deployment is one of:
     the best record for ``--protocol`` (``--deploy-t-intg`` pins its
     T_INTG) and serves it; ``--smoke`` cuts that sweep to the
     reference's smoke scale (T grid 100 and 1000 ms, deployed at 100 ms).
-    ``--smoke`` defaults to the dvs128 fixture, which comes with a later
-    slice: pass ``--dataset synthetic-gesture``.
+
+``--dataset dvs128|nmnist`` reads the files under ``--data-root``. Under
+``--smoke`` with no ``--data-root`` (dvs128 is ``--smoke``'s default) a
+miniature fixture of the dataset is written to a temporary directory
+(``data/fixtures.py``; for dvs128 2 recordings of 6 gesture trials),
+trained on, served and removed; without ``--smoke`` a file-backed
+dataset with no ``--data-root`` exits 2.
 
 ``--registry CKPT [CKPT ...]`` serves a deployment registry of several
 compat-equal checkpoints from one engine (entry name = the directory's
@@ -32,8 +38,10 @@ It runs on ``--device`` (default ``cuda``; the kernels build into
 
   python -m repro_torch.launch.stream --config full --streams 16 --capacity 16
   python -m repro_torch.launch.stream --device cpu --config reduced --streams 4
-  python -m repro_torch.launch.stream --smoke --dataset synthetic-gesture \\
-      --device cpu --streams 2 --capacity 2
+  python -m repro_torch.launch.stream --smoke --device cpu --streams 2 \\
+      --capacity 2
+  python -m repro_torch.launch.stream --dataset dvs128 --data-root DIR \\
+      --checkpoint ckpt_a --streams 16 --capacity 16
   python -m repro_torch.launch.stream --registry ckpt_a ckpt_b \\
       --variants ckpt_a circuit=b --streams 16 --capacity 16
   python -m repro_torch.launch.stream --checkpoint ckpt_a --adapt \\
@@ -43,13 +51,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import sys
+import tempfile
 from pathlib import Path
-
-
-def _later_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} comes with a later slice of the "
-                               f"PyTorch port")
 
 
 def _parse_variant_spec(spec: str):
@@ -66,6 +71,16 @@ def _parse_variant_spec(spec: str):
         except json.JSONDecodeError:
             matcher[k] = v
     return matcher
+
+
+def _make_fixture(dataset: str, root: Path) -> None:
+    """``--smoke``'s fixture, at the reference's sizes."""
+    from repro_torch.data import fixtures
+    if dataset == "dvs128":
+        fixtures.make_dvs128_fixture(root, n_recordings=2,
+                                     trials_per_recording=6)
+    else:
+        fixtures.make_nmnist_fixture(root)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -95,7 +110,10 @@ def main(argv: list[str] | None = None) -> int:
                     choices=["synthetic-gesture", "synthetic-nmnist",
                              "dvs128", "nmnist"],
                     help="event source (default: dvs128 under --smoke, "
-                         "else synthetic-gesture)")
+                         "served from a generated fixture, else "
+                         "synthetic-gesture)")
+    ap.add_argument("--data-root", type=str, default=None,
+                    help="dataset directory for the file-backed datasets")
     ap.add_argument("--duration-ms", type=float, default=None,
                     help="stream duration (default: the config's DATA "
                          "duration, or 2000 ms with --checkpoint)")
@@ -150,7 +168,9 @@ def main(argv: list[str] | None = None) -> int:
                     help="host binning worker threads (default: one per "
                          "device)")
     ap.add_argument("--smoke", action="store_true",
-                    help="train and deploy at the reference's smoke scale")
+                    help="train and deploy at the reference's smoke scale; "
+                         "writes a fixture when a file-backed dataset has "
+                         "no --data-root")
     args = ap.parse_args(argv)
 
     if args.registry is not None and args.checkpoint is not None:
@@ -164,21 +184,43 @@ def main(argv: list[str] | None = None) -> int:
         print("error: --adapt-export requires --adapt", file=sys.stderr)
         return 2
 
+    from repro_torch.data import sources
+    from repro_torch.stream.shard import make_lane_executor
+
+    dataset = args.dataset or ("dvs128" if args.smoke
+                               else "synthetic-gesture")
+    data_root = args.data_root
+    if dataset in sources.FILE_BACKED and data_root is None \
+            and not args.smoke:
+        print(f"error: dataset {dataset!r} is file-backed: pass "
+              f"--data-root (or --smoke to generate a fixture)",
+              file=sys.stderr)
+        return 2
+    executor = make_lane_executor(args.devices)
+
+    fixture_tmp = None
+    if dataset in sources.FILE_BACKED and data_root is None:
+        fixture_tmp = tempfile.mkdtemp(prefix=f"p2m-{dataset}-fixture-")
+        data_root = fixture_tmp
+        print(f"[stream] generating {dataset} fixture under {data_root}")
+    try:
+        if fixture_tmp is not None:
+            _make_fixture(dataset, Path(fixture_tmp))
+        return _serve(args, dataset, data_root, executor)
+    finally:
+        if fixture_tmp is not None:
+            shutil.rmtree(fixture_tmp, ignore_errors=True)
+
+
+def _serve(args, dataset: str, data_root: str | None, executor) -> int:
+    """Build or load the deployment, serve ``args.streams`` streams of
+    ``dataset``, write the artifact and print its summary."""
     from repro_torch.configs import p2m_dvs
     from repro_torch.data import sources
     from repro_torch.stream import deploy
     from repro_torch.stream.adapt import AdaptConfig
     from repro_torch.stream.engine import StreamEngine
     from repro_torch.stream.registry import Registry
-    from repro_torch.stream.shard import make_lane_executor
-
-    executor = make_lane_executor(args.devices)
-
-    dataset = args.dataset or ("dvs128" if args.smoke
-                               else "synthetic-gesture")
-    if args.smoke and dataset in sources.FILE_BACKED:
-        raise _later_slice(f"the {dataset} fixture of --smoke "
-                           f"(data/fixtures.py, ROADMAP.md queue 1 item 6)")
 
     out = Path(args.out)
     default_entry = None
@@ -207,7 +249,7 @@ def main(argv: list[str] | None = None) -> int:
         duration = args.duration_ms or data.duration_ms
     else:
         bundle = deploy.train_and_deploy(
-            out / "deploy", dataset=dataset, hw=args.hw,
+            out / "deploy", dataset=dataset, data_root=data_root, hw=args.hw,
             protocols=(args.protocol,), smoke=args.smoke,
             t_intg_grid_ms=(100.0, 1000.0) if args.smoke else None,
             deploy_t_intg_ms=(args.deploy_t_intg if args.deploy_t_intg
@@ -219,7 +261,7 @@ def main(argv: list[str] | None = None) -> int:
             artifact=bundle["artifact"])
     source = sources.resolve_dataset(
         dataset, hw=dep.model_cfg.backbone.input_hw[0],
-        duration_ms=duration)
+        duration_ms=duration, data_root=data_root, split="all")
     adapt = (AdaptConfig(rule=args.adapt_rule, lr_w=args.adapt_lr,
                          lr_theta=args.adapt_lr_theta)
              if args.adapt else None)
@@ -241,7 +283,8 @@ def main(argv: list[str] | None = None) -> int:
                           variants=variants, log=print)
 
     art = report.to_artifact()
-    art["data"] = {"dataset": dataset, "hw": source.height,
+    art["data"] = {"dataset": dataset, "data_root": data_root,
+                   "hw": source.height,
                    "n_classes": source.n_classes,
                    "duration_ms": source.duration_ms}
     out.mkdir(parents=True, exist_ok=True)

@@ -11,6 +11,8 @@ each axis also has an explicit value flag. ``--protocol`` picks phase 2:
 
   python -m repro_torch.launch.sweep --grid fast
   python -m repro_torch.launch.sweep --grid fast --protocol frozen --device cpu
+  python -m repro_torch.launch.sweep --grid fast --dataset dvs128 \\
+      --data-root DIR
   python -m repro_torch.launch.sweep --grid paper --circuits a c \\
       --t-intg 1 10 100 1000 --mismatch 0.02 0.06
 
@@ -42,8 +44,13 @@ def run_codesign_grid(args) -> int:
     except (ValueError, OSError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    # file-backed datasets evaluate on the held-out split, so records'
+    # accuracies are out of sample (synthetic streams have no split)
     eval_data, eval_split = sources_mod.resolve_eval_dataset(
         args.dataset, hw=args.hw, data_root=args.data_root)
+    if eval_split == "train":
+        print("note: val split of the dataset is empty — evaluating on "
+              "the training split", file=sys.stderr)
     if args.circuits:
         grid = replace(grid, circuits=tuple(
             CircuitConfig(c) for c in args.circuits))
@@ -161,8 +168,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--dataset", type=str, default="synthetic-gesture",
                     choices=["synthetic-gesture", "synthetic-nmnist",
                              "dvs128", "nmnist"],
-                    help="event source (data/sources.py); the file-backed "
-                         "datasets come with a later slice")
+                    help="event source (data/sources.py); dvs128 and "
+                         "nmnist read --data-root")
     ap.add_argument("--data-root", type=str, default=None,
                     help="dataset directory for the file-backed datasets")
     ap.add_argument("--hw", type=int, default=16,

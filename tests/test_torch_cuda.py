@@ -861,3 +861,88 @@ def test_cuda_adaptation_matches_cpu(cuda_device):
     np.testing.assert_allclose(by(off), by(frozen), rtol=0, atol=1e-4)
     assert [r.prediction for r in off.results] == \
         [r.prediction for r in frozen.results]
+
+
+# ---------------------------------------------------------------------------
+# file-backed data (a DVS128-Gesture fixture the port writes) on the card
+# ---------------------------------------------------------------------------
+
+def _file_source(root, hw):
+    """A 2-recording DVS128 fixture (2 gesture trials each) under ``root``,
+    read at ``hw``."""
+    from repro_torch.data import fixtures, sources
+    fixtures.make_dvs128_fixture(root, n_recordings=2,
+                                 trials_per_recording=2)
+    return sources.DVSGestureSource(root, hw=hw, split="all",
+                                    cache_root=root / "cache")
+
+
+@pytest.mark.cuda
+def test_cuda_file_batch_kernel_eval_matches_cpu(cuda_device, tmp_path):
+    """A file-backed batch at reduced() (4 fixture windows at 24×24,
+    T_INTG 10 ms, n_sub 4) evaluated in kernel mode: K1 on the card and
+    its plain version on the CPU give equal layer-1 spike counts and
+    logits within 1e-4 (the backbone's convolutions sum in another order
+    on cuDNN); K1 launched once."""
+    import dataclasses
+    from repro_torch.configs import p2m_dvs
+    from repro_torch.core import codesign
+    from repro_torch.kernels.p2m_conv import p2m_conv as pc
+    from repro_torch.stream.deploy import tree_to
+    cfg, _ = p2m_dvs.reduced()
+    cfg = dataclasses.replace(cfg, p2m=dataclasses.replace(cfg.p2m,
+                                                           mode="kernel"))
+    src = _file_source(tmp_path, cfg.backbone.input_hw[0])
+    ev, labels = src._gather([0, 1, 2, 3], cfg.p2m.t_intg_ms, cfg.p2m.n_sub)
+    assert ev.shape == (4, 200, 4, 24, 24, 2) and float(ev.sum()) > 0
+    out = {}
+    for device in ("cuda", "cpu"):
+        params, state = codesign.model_init(torch.Generator().manual_seed(0),
+                                            cfg)
+        params = _awake(tree_to(params, torch.device(device)))
+        before = pc.LAUNCHES["p2m_conv"] + pc.LAUNCHES["p2m_conv_fma"]
+        metrics, aux = codesign.make_eval_fn(cfg, device=device)(
+            params, tree_to(state, torch.device(device)), ev, labels)
+        launched = (pc.LAUNCHES["p2m_conv"] + pc.LAUNCHES["p2m_conv_fma"]
+                    - before)
+        out[device] = (metrics["logits"].cpu().numpy(),
+                       float(aux["spikes/p2m"]), launched)
+    (lc, sc, nc), (lp, sp_, np_) = out["cuda"], out["cpu"]
+    assert (nc, np_) == (1, 0)
+    assert sc == sp_ and sc > 0
+    assert np.abs(lp).max() > 0.05, "vacuous: the head never spiked"
+    np.testing.assert_allclose(lc, lp, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_file_replay_through_k3_matches_cpu(cuda_device, tmp_path):
+    """One fixture recording replayed to a fresh reduced() deployment
+    (circuit c): served through K3 on the card and through the plain fold
+    on the CPU, logits within 1e-4, the same prediction; K3 launched on
+    every chunk."""
+    from repro_torch.stream.engine import StreamEngine
+    dep_cpu = _circuit_deps("cpu")["c"]
+    src = _file_source(tmp_path, dep_cpu.model_cfg.backbone.input_hw[0])
+
+    class Pinned:
+        def __init__(self):
+            for attr in ("name", "height", "width", "n_classes",
+                         "duration_ms", "sensor_hw", "n_slots"):
+                setattr(self, attr, getattr(src, attr))
+
+        def iter_event_chunks(self, gen, *, chunk_us, slot_us=None):
+            return src.iter_event_chunks(gen, chunk_us=chunk_us, index=2)
+
+    reps = {}
+    for device, mode, dep in (("cpu", "deposit", dep_cpu),
+                              ("cuda", "mac", _circuit_deps("cuda")["c"])):
+        before = sf.LAUNCHES["fold_mac"]
+        reps[device] = StreamEngine(dep, capacity=1, fold_mode=mode,
+                                    device=device).serve(Pinned(), 1, seed=0)
+        launched = sf.LAUNCHES["fold_mac"] - before
+    (got,), (want,) = reps["cuda"].results, reps["cpu"].results
+    assert launched == len(reps["cuda"].fold_s) + 1      # + the warm-up
+    assert got.label == want.label == src.samples[2].label
+    assert np.abs(want.logits).max() > 0.05, "vacuous: the head never spiked"
+    np.testing.assert_allclose(got.logits, want.logits, rtol=0, atol=1e-4)
+    assert got.prediction == want.prediction

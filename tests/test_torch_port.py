@@ -3,6 +3,7 @@ host-side serving pieces (own copies of the JAX package's jax-free
 modules)."""
 from __future__ import annotations
 
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -156,14 +157,27 @@ def test_engine_refuses_a_registry():
                                   ["--dataset", "dvs128"]])
 def test_launcher_refuses_later_slices(argv, tmp_path, capsys):
     """What the port does not run raises NotImplementedError (more than
-    one card, file-backed data); misuse of the ported registry and
-    adaptation flags exits 2 before anything is built."""
+    one card); misuse of the registry and adaptation flags, and a
+    file-backed dataset with no --data-root outside --smoke, exit 2 with
+    ``error:`` before anything is built; ``--smoke`` (with --config
+    reduced, which --smoke overrides as in the reference) trains on its
+    dvs128 fixture and serves."""
     from repro_torch.launch import stream as launcher
     args = ["--device", "cpu", "--config", "reduced",
             "--out", str(tmp_path)] + argv
-    if argv[0] in ("--registry", "--adapt-export"):
+    if argv[0] in ("--registry", "--adapt-export", "--dataset"):
         assert launcher.main(args) == 2
-        assert "error:" in capsys.readouterr().err
+        err = capsys.readouterr().err
+        assert "error:" in err
+        if argv[0] == "--dataset":
+            assert "file-backed" in err and not list(tmp_path.iterdir())
+        return
+    if argv == ["--smoke"]:
+        assert launcher.main(args + ["--streams", "2",
+                                     "--capacity", "2"]) == 0
+        art = json.loads((tmp_path / "stream_serving_dvs128.json")
+                         .read_text())
+        assert art["n_streams"] == 2 and art["data"]["dataset"] == "dvs128"
         return
     with pytest.raises(NotImplementedError, match="later slice|ROADMAP"):
         launcher.main(args)

@@ -431,8 +431,13 @@ def test_synthetic_source_batch_api():
         assert sources.resolve_eval_dataset(name, hw=8) == \
             j_sources.resolve_eval_dataset(name, hw=8) == (None, None)
     assert sources.DATASET_DURATIONS_MS == j_sources.DATASET_DURATIONS_MS
-    with pytest.raises(NotImplementedError, match="later slice"):
-        sources.resolve_dataset("dvs128", data_root="x", split="val")
+    # the file-backed datasets: a root is required, and one without
+    # recordings raises, as in the reference
+    for mod in (sources, j_sources):
+        with pytest.raises(ValueError, match="file-backed"):
+            mod.resolve_dataset("dvs128", split="val")
+        with pytest.raises(ValueError, match="no samples found"):
+            mod.resolve_dataset("nmnist", data_root="x", split="val")
 
 
 def test_select_record_total_order_matches_reference(runs):
