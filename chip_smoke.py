@@ -67,6 +67,13 @@ no ``ok`` line):
   5d. registry and adapt parity — both at reduced() on cuda and on the CPU
                 from the same streams (``phase_registry_parity``,
                 ``phase_adapt_parity``);
+  5e. shard   — the lane and variant axes over several shards, all placed
+                on the one card (``phase_shard``): the [slice] serves over
+                2 shards through K2 and K3 bit-identical to phase 4's, with
+                2 x (chunks + warm-up) launches on the fast routes; registry
+                and adaptive serving over 2 shards; reduced() with one lane
+                a shard; the sweep at reduced() over 3 shards (records
+                equal); both launchers refusing more --devices than cards;
   6. physics  — the full-width model evaluated on the physics batch with
                 ``make_eval_fn`` in kernel mode (the P²M conv kernel) and in
                 scan mode for each paper circuit, one kernel-mode eval under
@@ -121,7 +128,8 @@ The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --only registry,adapt`` runs phases 1, 2, 4 and
-the named ones of 5b-5d, and prints no ``ok`` line; ``--only files``
+the named ones of 5b-5e (``--only shard`` the shards), and prints no
+``ok`` line; ``--only files``
 runs phases 1, 2 and 6d (with registry or adapt also named, 6d comes
 before phase 4).
 
@@ -131,6 +139,7 @@ K1, the MAC-mode fold_chunk and K4 as the checkout at ROOT has them (see
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -2356,26 +2365,327 @@ def phase_adapt_parity(torch) -> None:
     print(f"[adapt parity] reduced(): {int(pst['n_updates'].sum())} updates "
           f"on 8 lanes, cuda vs cpu: dw {errs['dw']:.3g}, dtheta "
           f"{errs['dtheta']:.3g} of their largest (limit {ADAPT_RTOL}), "
-          f"max |logit diff| {diff:.3g}; on the card lr 0 (per-lane cuDNN "
+          f"max |logit diff| {diff:.3g}; on the card lr 0 (per-lane tap-sum "
           f"fold) vs frozen (K2): max |logit diff| {gap:.3g}, predictions "
           f"equal")
 
 
-def registry_and_adapt(torch, sf, dep, src, reports) -> None:
-    """5b-5d: registry serving and adaptation at full width, then both at
-    reduced() on cuda against the CPU."""
+# [shard]: the sweep's record fields that are host-clock times
+SWEEP_TIMING = {"train_time_s", "train_time_per_step_s", "train_time_norm"}
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    """cuDNN's deterministic algorithms for a comparison of two runs that
+    differentiate: its default backward algorithms may sum with atomics,
+    so two unsharded runs could differ in their last bits."""
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+def shard_places(n: int) -> tuple[str, ...]:
+    """``n`` shards on the one card: the split, the padding and the
+    per-shard launches of a lane or variant mesh, with no multi-card
+    speed to show."""
+    return ("cuda:0",) * n
+
+
+def same_streams(got, want, what: str) -> None:
+    """Every stream of ``got`` equal to ``want``'s: labels, predictions,
+    counters, entries, logits bit-identical; and the ledgers equal."""
+    import numpy as np
+    a = sorted(want.results, key=lambda r: r.stream_id)
+    b = sorted(got.results, key=lambda r: r.stream_id)
+    if len(a) != len(b):
+        fail(f"{what}: {len(b)} streams finished, expected {len(a)}")
+    worst, top = 0.0, 0.0
+    for x, y in zip(a, b):
+        for f in ("label", "prediction", "n_events", "n_readouts",
+                  "n_coarse_frames", "admitted_window", "finished_window",
+                  "entry", "entry_uid"):
+            if getattr(x, f) != getattr(y, f):
+                fail(f"{what}: stream {x.stream_id} {f} "
+                     f"{getattr(y, f)} vs {getattr(x, f)}")
+        worst = max(worst, float(np.abs(np.subtract(x.logits,
+                                                    y.logits)).max()))
+        top = max(top, float(np.abs(x.logits).max()))
+    if not top > 0.05:
+        fail(f"{what}: the head never spiked (max |logit| {top}), the "
+             f"comparison would be vacuous")
+    if worst > 0.0:
+        fail(f"{what}: logits differ by {worst} (largest {top})")
+    for k in ("n_offered", "n_admitted", "n_shed", "n_rejected",
+              "n_deferred", "total_events", "total_readouts",
+              "total_layer1_spikes"):
+        if getattr(want, k) != getattr(got, k):
+            fail(f"{what}: {k} {getattr(got, k)} vs {getattr(want, k)}")
+
+
+def batched_backbone_gap(torch, dep) -> dict:
+    """Why the readout steps the backbone lane by lane
+    (``accumulator.backbone_lanes``): one batched step of 16 lanes on the
+    card against the same lanes stepped in blocks of 8 and of 1, on
+    seeded coarse counts and membranes; per block size the largest
+    difference of the logits and of each layer's membrane."""
+    from repro_torch.core import snn
+    from repro_torch.stream.accumulator import entry_numerics
+    from repro_torch.stream.deploy import tree_to
+    cfg = dep.model_cfg.backbone
+    nb = tree_to(entry_numerics(dep), torch.device("cuda"))
+    gen = torch.Generator().manual_seed(3)
+    hp = cfg.input_hw[0] // dep.model_cfg.p2m.stride // 2
+    coarse = torch.randint(0, 3, (N_LANES, hp, hp,
+                                  dep.model_cfg.p2m.out_channels),
+                           generator=gen).float().cuda()
+    mem = {k: (torch.rand(v.shape, generator=gen) * 0.5).cuda()
+           for k, v in snn.spiking_cnn_stream_init(
+               cfg, N_LANES, torch.device("cpu")).items()}
+
+    def step(lo, hi):
+        return snn.spiking_cnn_stream_step(
+            nb["backbone"], nb["bn_state"],
+            {k: v[lo:hi] for k, v in mem.items()}, coarse[lo:hi], cfg)
+
+    full = step(0, N_LANES)
+    gaps = {}
+    for block in (8, 1):
+        parts = [step(i, i + block) for i in range(0, N_LANES, block)]
+        lg = torch.cat([p[0] for p in parts])
+        gap = {"logits": float((lg - full[0]).abs().max())}
+        for k in full[1]:
+            got = torch.cat([p[1][k] for p in parts])
+            gap[k] = float((got - full[1][k]).abs().max())
+        gaps[block] = gap
+    return gaps
+
+
+def phase_shard(torch, sf, dep, src, reports) -> dict:
+    """The lane axis and the variant axis over several shards, all on the
+    one card (``places``; the CLIs' ``--devices N`` takes N cards):
+
+    - the [slice] deployment serving its 16 recorded streams at capacity 16
+      over 2 shards through K2 and through K3, each stream bit-identical
+      to the [slice] serve (devices=1); launches equal to 2 x (chunks + the
+      warm-up), all on the fast route (``fold``, ``fold_mac``): a
+      misaligned shard would take ``fold_scalar`` / ``fold_mac_cp``;
+      events/s and the fold step's host p50 beside devices=1's;
+    - registry serving (circuits a, b beside c, round-robin, K2) and
+      adaptive serving (surrogate, lr_w 1.0; both runs under cuDNN's
+      deterministic algorithms) over 2 shards against devices=1: every
+      stream equal, the adapted deltas bit-identical;
+    - reduced() with 4 lanes over 4 shards (one lane each) against
+      devices=1: every stream bit-identical; beside it, how far a batched
+      backbone step of 16 lanes is from the same lanes in blocks of 8
+      and of 1 on the card (why the readout steps lane by lane);
+    - the sweep at reduced() (fast grid, both protocols) over 3 shards
+      against devices=1: records equal, timing fields apart, under
+      cuDNN's deterministic algorithms for both runs (its default weight
+      gradients sum with atomics, so two unsharded runs would differ);
+    - both launchers given more --devices than there are cards: ``error:``
+      and exit 2 before any compute.
+
+    Returns the K2/K3 launches of the sharded serves (this path's)."""
+    import io
+    import numpy as np
+    from repro_torch.configs import p2m_dvs
+    from repro_torch.core import codesign, sweep
+    from repro_torch.core.sweep_exec import SweepExecutor
+    from repro_torch.data import sources
+    from repro_torch.stream.adapt import AdaptConfig
+    from repro_torch.stream.engine import StreamEngine, stream_generator
+    from repro_torch.stream.registry import Registry
+    from repro_torch.stream.shard import LaneExecutor
+    smi = nvidia_smi()
+    two = LaneExecutor(devices=2, places=shard_places(2))
+    launches = {}
+    for mode, counter in (("deposit", "fold"), ("mac", "fold_mac")):
+        eng = StreamEngine(dep, capacity=N_LANES, fold_mode=mode,
+                           device="cuda", executor=two)
+        rep, counts = serve_counted(torch, sf, eng, src, N_LANES)
+        expected = 2 * (len(rep.fold_s) + 1)
+        if counts[counter] != expected or sum(counts.values()) != expected:
+            fail(f"shard {mode}: launches {counts}, expected {expected} of "
+                 f"{counter} (2 shards x (chunks + the warm-up)) and none "
+                 f"of any other route or kernel")
+        same_streams(rep, reports[mode], f"shard {mode} 2 shards vs 1")
+        sh = rep.to_artifact()["sharding"]
+        if sh != {"devices": 2, "bin_workers": 2, "padded_capacity": N_LANES,
+                  "lanes_per_shard": N_LANES // 2,
+                  "per_shard_admitted": [N_LANES // 2] * 2}:
+            fail(f"shard {mode}: sharding block {sh}")
+        for tag, r in (("1 shard ", reports[mode]), ("2 shards", rep)):
+            art = r.to_artifact()
+            print(f"[shard] fold={mode} {tag} on one card ({smi}): "
+                  f"{art['throughput']['events_per_s']:.0f} events/s, fold "
+                  f"step host p50 {art['latency_ms']['fold_p50']:.3f} ms, "
+                  f"readout p50 {art['latency_ms']['readout_p50']:.3f} ms")
+        print(f"[shard] fold={mode}: {N_LANES} streams on 2 shards "
+              f"bit-identical to devices=1, launches {counts} (expected "
+              f"{expected}, fast route)")
+        launches[counter] = counts[counter]
+
+    # registry (K2) and adaptation over 2 shards against devices=1
+    deps = {**circuit_deployments(torch, p2m_dvs.CONFIG, "cuda",
+                                  {"a": ("a", 1), "b": ("b", 2)}), "c": dep}
+    variants = [("a", "b", "c")[i % 3] for i in range(N_LANES)]
+    runs = {}
+    for ex in (None, two):
+        reg = Registry()
+        for name, d in deps.items():
+            reg.register(name, d)
+        eng = StreamEngine(reg, capacity=N_LANES, device="cuda", executor=ex)
+        zero((sf.LAUNCHES,))
+        runs[ex] = eng.serve(src.replay(), N_LANES, seed=0,
+                             variants=variants)
+        torch.cuda.synchronize()
+        runs[(ex, "launches")] = dict(sf.LAUNCHES)
+    same_streams(runs[two], runs[None], "shard registry 2 shards vs 1")
+    got = runs[(two, "launches")]
+    if got["fold"] == 0 or sum(got.values()) != got["fold"]:
+        fail(f"shard registry: launches {got}, expected K2's fast route "
+             f"only")
+    launches["fold"] += got["fold"]
+    print(f"[shard] registry (a, b, c round-robin, K2) on 2 shards: "
+          f"{serve_line(runs[two])}; devices=1 {serve_line(runs[None])}; "
+          f"every stream bit-identical, launches {got} (devices=1 "
+          f"{runs[(None, 'launches')]['fold']})")
+    acfg = AdaptConfig(rule="surrogate", lr_w=1.0, lr_theta=0.01)
+    adapted = {}
+    for ex in (None, two):
+        eng = StreamEngine(dep, capacity=N_LANES, device="cuda",
+                           executor=ex, adapt=acfg)
+        zero((sf.LAUNCHES,))
+        with deterministic_cudnn(torch):
+            rep = eng.serve(src.replay(), N_LANES, seed=0)
+            torch.cuda.synchronize()
+        if any(sf.LAUNCHES.values()):
+            fail(f"shard adapt: launches {dict(sf.LAUNCHES)}, expected none")
+        adapted[ex] = (rep, {k: v.cpu().numpy()
+                             for k, v in eng.adapt_state.items()})
+    same_streams(adapted[two][0], adapted[None][0], "shard adapt")
+    for k, v in adapted[None][1].items():
+        if not np.array_equal(v, adapted[two][1][k]):
+            fail(f"shard adapt: {k} differs by "
+                 f"{np.abs(v - adapted[two][1][k]).max()}")
+    n_upd = int(adapted[None][1]["n_updates"].sum())
+    if not n_upd > 0:
+        fail("shard adapt: no update applied")
+    print(f"[shard] adapt (surrogate, lr_w 1.0) on 2 shards: "
+          f"{serve_line(adapted[two][0])}; devices=1 "
+          f"{serve_line(adapted[None][0])}; every stream and the {n_upd} "
+          f"updates' dw, dtheta bit-identical")
+
+    # one lane a shard, at reduced()
+    rcfg, rdata = p2m_dvs.reduced()
+    rdep = circuit_deployments(torch, rcfg, "cuda", {"c": ("c", 0)})["c"]
+    one = {}
+    for ex in (None, LaneExecutor(devices=4, places=shard_places(4))):
+        eng = StreamEngine(rdep, capacity=4, device="cuda", executor=ex)
+        rsrc = Prerecorded(sources.resolve_dataset(
+            "synthetic-gesture", hw=rcfg.backbone.input_hw[0],
+            duration_ms=rdata.duration_ms), 8, 1, eng.chunk_us,
+            eng.slot_us, stream_generator)
+        one[ex is None] = eng.serve(rsrc.replay(), 8, seed=1)
+    same_streams(one[False], one[True], "shard reduced() 4 lanes on 4 "
+                 "shards")
+    gaps = batched_backbone_gap(torch, dep)
+    print(f"[shard] reduced(), 4 lanes on 4 shards (one each) vs 1: every "
+          f"stream bit-identical; a batched backbone step of 16 lanes vs "
+          f"blocks of 8 / 1 on the card, max |diff| "
+          + "; ".join(f"{b}: " + ", ".join(f"{k} {v:.3g}"
+                                            for k, v in g.items())
+                      for b, g in gaps.items())
+          + " (the readout steps lane by lane)")
+
+    # the sweep's variant axis over 3 shards
+    grid = sweep.fast_grid()
+    scfg = codesign.SweepConfig(t_intg_grid_ms=grid.t_intg_grid_ms,
+                                batch_size=2, pretrain_steps=2,
+                                finetune_steps=2, eval_batches=1)
+    init = awake_init(codesign)
+    res = {}
+    try:
+        for ex in (None, SweepExecutor(devices=3,
+                                       places=shard_places(3))):
+            t0 = time.perf_counter()
+            with deterministic_cudnn(torch):
+                res[ex is None] = sweep.run_protocols(
+                    rdata, rcfg, scfg, grid, device="cuda", executor=ex,
+                    keep_params=True, log=lambda *_: None)
+            res[(ex is None, "s")] = time.perf_counter() - t0
+    finally:
+        codesign.model_init = init
+    n_rec = 0
+    for proto in ("frozen", "unfrozen"):
+        a, b = res[True][proto], res[False][proto]
+        if len(a.records) != len(b.records):
+            fail(f"shard sweep {proto}: {len(b.records)} records vs "
+                 f"{len(a.records)}")
+        for x, y in zip(a.records, b.records):
+            for k in x:
+                if k not in SWEEP_TIMING and x[k] != y[k]:
+                    fail(f"shard sweep {proto} {x['label']} "
+                         f"{x['t_intg_ms']:g} ms: {k} {y[k]} vs {x[k]}")
+            n_rec += 1
+        for cell, fp in a.final_params.items():
+            gb = b.final_params[cell]
+            for k in ("backbone", "state"):
+                for va, vb in zip(_leaves(fp[k]), _leaves(gb[k])):
+                    if va.shape != vb.shape or not torch.equal(va, vb):
+                        fail(f"shard sweep {proto} {cell}: {k} differs")
+    print(f"[shard] sweep reduced(), fast grid, both protocols, 4 variants "
+          f"on 3 shards (padded to 6) vs 1: {n_rec} records equal (timing "
+          f"apart), final params unpadded and bit-identical; "
+          f"{res[(False, 's')]:.1f} s vs {res[(True, 's')]:.1f} s on one "
+          f"card ({smi})")
+
+    # more --devices than cards: error and exit 2 before any compute
+    more = str(torch.cuda.device_count() + 1)
+    from repro_torch.launch import stream as stream_cli
+    from repro_torch.launch import sweep as sweep_cli
+    out = ROOT / "build" / "chip_smoke" / "shard_cli"
+    for name, cli, argv in (
+            ("sweep", sweep_cli, ["--grid", "fast"]),
+            ("stream", stream_cli, ["--config", "reduced"])):
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(argv + ["--devices", more, "--out", str(out)])
+        if rc != 2 or not err.getvalue().startswith("error: ") or \
+                out.exists():
+            fail(f"shard: {name} launcher --devices {more}: exit {rc}, "
+                 f"stderr {err.getvalue()!r}")
+        print(f"[shard] {name} launcher --devices {more} on "
+              f"{torch.cuda.device_count()} card(s): exit 2 in "
+              f"{time.perf_counter() - t0:.2f} s, "
+              f"{err.getvalue().strip()!r}")
+    return launches
+
+
+def registry_and_adapt(torch, sf, dep, src, reports) -> dict:
+    """5b-5e: registry serving and adaptation at full width, then both at
+    reduced() on cuda against the CPU, then the shards; the [shard]
+    phase's K2/K3 launches."""
+    out = {}
     for name, phase in (
             ("registry", lambda: phase_registry(torch, sf, dep, src,
                                                 reports)),
             ("adapt", lambda: phase_adapt(torch, sf, dep, src)),
             ("registry parity", lambda: phase_registry_parity(torch)),
-            ("adapt parity", lambda: phase_adapt_parity(torch))):
+            ("adapt parity", lambda: phase_adapt_parity(torch)),
+            ("shard", lambda: out.update(phase_shard(torch, sf, dep, src,
+                                                     reports)))):
         if ONLY and name.split()[0] not in ONLY:
             continue
         t0 = time.perf_counter()
         phase()
         torch.cuda.empty_cache()
         print(f"[{name}] phase {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def measure_tree(torch) -> None:
@@ -2432,8 +2742,8 @@ def main() -> int:
         SRC = Path(sys.argv[2]).resolve() / "src"
     if sys.argv[1:2] == ["--only"]:
         ONLY = set(sys.argv[2].split(","))
-        if not ONLY <= {"registry", "adapt", "files"}:
-            fail(f"--only takes registry, adapt and/or files, got "
+        if not ONLY <= {"registry", "adapt", "shard", "files"}:
+            fail(f"--only takes registry, adapt, shard and/or files, got "
                  f"{sys.argv[2]}")
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
@@ -2600,7 +2910,7 @@ def main() -> int:
     print(f"[parity] reduced(): {N_LANES} streams on 8 lanes, cuda vs cpu "
           f"max |logit diff| {diff:.3g}, predictions "
           f"{[r.prediction for r in by_id['cuda']]}")
-    registry_and_adapt(torch, sf, dep, src, reports)
+    shard = registry_and_adapt(torch, sf, dep, src, reports)
 
     # 6. the physics slice at full width, through K1 and K4
     print(f"[physics] {cfg.backbone.input_hw} input, {cfg.p2m.out_channels} "
@@ -2668,7 +2978,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/stream_fold.cu",
             "replaces": replaces,
-            "launches": launches[counter] + files[counter],
+            "launches": launches[counter] + files[counter] + shard[counter],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

@@ -196,11 +196,14 @@ def run_sweep(data_cfg: Any = None,
     single-circuit wrapper over ``core.sweep.run_grid``, whose stacked
     config axis here has length 1. ``data_cfg=None`` resolves
     ``sweep.dataset`` at the backbone's input resolution; ``devices``
-    other than 1 raise (one card)."""
+    shards the stacked config axis (``core/sweep_exec.py``), checked
+    against the visible cards before any compute."""
     from repro_torch.core import sweep as sweep_engine
     from repro_torch.core.sweep_exec import make_executor
     from repro_torch.data import sources as sources_mod
 
+    executor = make_executor(devices,
+                             device=torch.device(device or "cuda").type)
     if model_cfg is None:
         model_cfg = P2MModelConfig()
     if data_cfg is None:
@@ -211,12 +214,11 @@ def run_sweep(data_cfg: Any = None,
                    p2m=replace(model_cfg.p2m,
                                leak=replace(model_cfg.p2m.leak,
                                             circuit=circuit)))
-    make_executor(devices)
     grid = sweep_engine.SweepGrid(
         circuits=(circuit,),
         t_intg_grid_ms=tuple(sweep.t_intg_grid_ms),
         null_mismatch=(mcfg.p2m.leak.null_mismatch,))
     result = sweep_engine.run_grid(data_cfg, mcfg, sweep, grid, log=log,
-                                   protocol=protocol,
+                                   protocol=protocol, executor=executor,
                                    eval_data=eval_data, device=device)
     return result.records

@@ -58,6 +58,7 @@ from repro_torch.core import analog as analog_mod
 from repro_torch.core import energy as energy_mod
 from repro_torch.core import leakage, p2m_layer, snn, variant_grid
 from repro_torch.core.leakage import CircuitConfig, LeakageConfig
+from repro_torch.core.sweep_exec import AXIS, REP, SweepExecutor
 from repro_torch.data import sources as sources_mod
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.optim import adamw, clip_by_global_norm
@@ -271,9 +272,86 @@ def _coeffs(model_cfg, leak_cfgs) -> list[leakage.LeakCoeffs]:
             for lc in leak_cfgs]
 
 
+def _sharded(ex: SweepExecutor, dev: torch.device, make_body: Callable,
+             in_specs: tuple[str, ...]) -> Callable:
+    """``make_body(place)`` for each of the executor's shards, mapped over
+    the variant axis (the one body on ``dev`` when unsharded)."""
+    places = ex.bind(dev)
+    return ex.shard([make_body(p) for p in places], in_specs, places)
+
+
+def _finetune_body(model_cfg, opt: Optimizer, protocol: str,
+                   dev: torch.device) -> Callable:
+    """One shard's phase-2 step on ``dev``: ``inner(coeffs, p2m, bb_s,
+    opt_s, state_s, events, labels)`` over the variants of ``coeffs``."""
+    bb_cfg = model_cfg.backbone
+
+    def to_dev(events, labels):
+        return (torch.as_tensor(events, dtype=torch.float32, device=dev),
+                torch.as_tensor(labels, device=dev).long())
+
+    def update(grads, o_s, params):
+        grads, gnorm = clip_by_global_norm(grads, 1.0)
+        updates, o_s = opt.update(grads, o_s, params)
+        return apply_updates(params, updates), o_s, gnorm
+
+    if protocol == "frozen":
+        def inner(coeffs, p2m_params, bb_params_s, opt_state_s, state_s,
+                  events, labels):
+            events, labels = to_dev(events, labels)
+            coarse_s, l1_s = _layer1_coarse_frozen(p2m_params, events,
+                                                   model_cfg, coeffs)
+
+            def per_cfg(bb_p, o_s, st, coarse):
+                def loss_fn(p):
+                    logits, new_st, _ = snn.spiking_cnn_apply(
+                        p, st, coarse, bb_cfg, train=True)
+                    return snn.cross_entropy(logits, labels), (new_st, logits)
+
+                loss, (new_st, logits), grads = _value_and_grad(loss_fn, bb_p)
+                bb_p, o_s, gnorm = update(grads, o_s, bb_p)
+                return bb_p, o_s, new_st, {
+                    "loss": loss, "gnorm": gnorm,
+                    "acc": snn.accuracy(logits.detach(), labels)}
+
+            bb_params_s, opt_state_s, state_s, metrics = _map_cfgs(
+                per_cfg, bb_params_s, opt_state_s, state_s, coarse_s)
+            return (p2m_params, bb_params_s, opt_state_s, state_s, metrics,
+                    l1_s)
+
+        return inner
+
+    def inner(coeffs, p2m_params_s, bb_params_s, opt_state_s, state_s,
+              events, labels):
+        events, labels = to_dev(events, labels)
+
+        def per_cfg(p2m_p, bb_p, o_s, st, co):
+            def loss_fn(joint):
+                coarse, l1 = _layer1_coarse_one(joint["p2m"], events,
+                                                model_cfg, co)
+                logits, new_st, _ = snn.spiking_cnn_apply(
+                    joint["backbone"], st, coarse, bb_cfg, train=True)
+                return (snn.cross_entropy(logits, labels),
+                        (new_st, logits, l1))
+
+            loss, (new_st, logits, l1), grads = _value_and_grad(
+                loss_fn, {"p2m": p2m_p, "backbone": bb_p})
+            joint, o_s, gnorm = update(grads, o_s,
+                                       {"p2m": p2m_p, "backbone": bb_p})
+            return joint["p2m"], joint["backbone"], o_s, new_st, {
+                "loss": loss, "gnorm": gnorm,
+                "acc": snn.accuracy(logits.detach(), labels)}, l1
+
+        return _map_cfgs(per_cfg, p2m_params_s, bb_params_s, opt_state_s,
+                         state_s, coeffs)
+
+    return inner
+
+
 def make_batched_finetune_step(model_cfg, leak_cfgs: tuple[LeakageConfig, ...],
                                opt: Optimizer, protocol: str = "frozen",
-                               device: str | torch.device | None = None
+                               device: str | torch.device | None = None,
+                               executor: SweepExecutor | None = None
                                ) -> Callable:
     """One phase-2 step over all n_cfg circuit variants on ``device``
     (cuda unless the caller asks for the CPU)::
@@ -294,93 +372,42 @@ def make_batched_finetune_step(model_cfg, leak_cfgs: tuple[LeakageConfig, ...],
     ``opt`` (a :func:`joint_optimizer`).
 
     Stacked arguments carry a leading [n_cfg] axis and must be on
-    ``device``; events and labels are moved there. This is not
+    ``device``; events and labels are moved there. With a sharded
+    ``executor`` the stacked arguments are the ``executor.split`` of trees
+    padded to ``executor.padded_size(n_cfg)`` (see :func:`run_grid`) and
+    come back so; each shard runs its variants on its device, with the
+    events and the shared frozen layer 1 copied there. The body is the
+    same with and without sharding. ``metrics`` and ``l1`` come back
+    unpadded, on the first shard's device. This is not
     ``codesign.make_train_step``, whose frozen step zeroes layer 1's
     gradients inside a joint tree; it reuses its pieces."""
     _check_protocol(protocol)
     _check_curvefit(model_cfg, protocol)
-    dev = resolve_device(device)
-    bb_cfg = model_cfg.backbone
-    coeffs = _coeffs(model_cfg, leak_cfgs)
+    ex = executor or SweepExecutor()
+    G = len(leak_cfgs)
+    coeffs = ex.pad_stacked(_coeffs(model_cfg, leak_cfgs), G)
+    p2m_spec = REP if protocol == "frozen" else AXIS
+    run = _sharded(ex, resolve_device(device),
+                   lambda d: _finetune_body(model_cfg, opt, protocol, d),
+                   (AXIS, p2m_spec, AXIS, AXIS, AXIS, REP, REP))
 
-    def to_dev(events, labels):
-        return (torch.as_tensor(events, dtype=torch.float32, device=dev),
-                torch.as_tensor(labels, device=dev).long())
-
-    def update(grads, o_s, params):
-        grads, gnorm = clip_by_global_norm(grads, 1.0)
-        updates, o_s = opt.update(grads, o_s, params)
-        return apply_updates(params, updates), o_s, gnorm
-
-    if protocol == "frozen":
-        def step(p2m_params, bb_params_s, opt_state_s, state_s, events,
-                 labels):
-            events, labels = to_dev(events, labels)
-            coarse_s, l1_s = _layer1_coarse_frozen(p2m_params, events,
-                                                   model_cfg, coeffs)
-
-            def per_cfg(bb_p, o_s, st, coarse):
-                def loss_fn(p):
-                    logits, new_st, _ = snn.spiking_cnn_apply(
-                        p, st, coarse, bb_cfg, train=True)
-                    return snn.cross_entropy(logits, labels), (new_st, logits)
-
-                loss, (new_st, logits), grads = _value_and_grad(loss_fn, bb_p)
-                bb_p, o_s, gnorm = update(grads, o_s, bb_p)
-                return bb_p, o_s, new_st, {
-                    "loss": loss, "gnorm": gnorm,
-                    "acc": snn.accuracy(logits.detach(), labels)}
-
-            bb_params_s, opt_state_s, state_s, metrics = _map_cfgs(
-                per_cfg, bb_params_s, opt_state_s, state_s, coarse_s)
-            return (p2m_params, bb_params_s, opt_state_s, state_s, metrics,
-                    _merge_grouped_l1(l1_s))
-
-        return step
-
-    def step(p2m_params_s, bb_params_s, opt_state_s, state_s, events,
-             labels):
-        events, labels = to_dev(events, labels)
-
-        def per_cfg(p2m_p, bb_p, o_s, st, co):
-            def loss_fn(joint):
-                coarse, l1 = _layer1_coarse_one(joint["p2m"], events,
-                                                model_cfg, co)
-                logits, new_st, _ = snn.spiking_cnn_apply(
-                    joint["backbone"], st, coarse, bb_cfg, train=True)
-                return (snn.cross_entropy(logits, labels),
-                        (new_st, logits, l1))
-
-            loss, (new_st, logits, l1), grads = _value_and_grad(
-                loss_fn, {"p2m": p2m_p, "backbone": bb_p})
-            joint, o_s, gnorm = update(grads, o_s,
-                                       {"p2m": p2m_p, "backbone": bb_p})
-            return joint["p2m"], joint["backbone"], o_s, new_st, {
-                "loss": loss, "gnorm": gnorm,
-                "acc": snn.accuracy(logits.detach(), labels)}, l1
-
-        (p2m_params_s, bb_params_s, opt_state_s, state_s, metrics,
-         l1_s) = _map_cfgs(per_cfg, p2m_params_s, bb_params_s, opt_state_s,
-                           state_s, coeffs)
-        return (p2m_params_s, bb_params_s, opt_state_s, state_s, metrics,
+    def step(p2m_ps, bb_params_s, opt_state_s, state_s, events, labels):
+        p2m_out, bb_params_s, opt_state_s, state_s, metrics, l1_s = run(
+            coeffs, p2m_ps, bb_params_s, opt_state_s, state_s, events,
+            labels)
+        if protocol == "frozen":
+            p2m_out = p2m_ps
+        metrics, l1_s = ex.gather((metrics, l1_s), G)
+        return (p2m_out, bb_params_s, opt_state_s, state_s, metrics,
                 _merge_grouped_l1(l1_s))
 
     return step
 
 
-def make_batched_eval(model_cfg, leak_cfgs: tuple[LeakageConfig, ...],
-                      protocol: str = "frozen",
-                      device: str | torch.device | None = None) -> Callable:
-    """Batched eval on ``device``: ``ev(p2m_ps, bb_params_s, state_s,
-    events, labels) → (metrics {"acc", "loss"} [G], aux {key: [G]}, l1)``
-    with the layer-1 spike statistics feeding bandwidth and energy. Under
-    ``protocol="unfrozen"`` the first argument carries per-variant layer-1
-    params and the whole forward runs per variant."""
-    _check_protocol(protocol)
-    _check_curvefit(model_cfg, protocol)
-    dev = resolve_device(device)
+def _eval_body(model_cfg, protocol: str, dev: torch.device) -> Callable:
+    """One shard's batched eval on ``dev``: ``inner(coeffs, p2m, bb_s,
+    state_s, events, labels) → (metrics, aux, l1_s)``."""
     bb_cfg = model_cfg.backbone
-    coeffs = _coeffs(model_cfg, leak_cfgs)
 
     def head(bb_p, st, coarse, labels):
         logits, _, aux = snn.spiking_cnn_apply(bb_p, st, coarse, bb_cfg,
@@ -388,7 +415,7 @@ def make_batched_eval(model_cfg, leak_cfgs: tuple[LeakageConfig, ...],
         return {"acc": snn.accuracy(logits, labels),
                 "loss": snn.cross_entropy(logits, labels)}, aux
 
-    def ev(p2m_ps, bb_params_s, state_s, events, labels):
+    def inner(coeffs, p2m_ps, bb_params_s, state_s, events, labels):
         events = torch.as_tensor(events, dtype=torch.float32, device=dev)
         labels = torch.as_tensor(labels, device=dev).long()
         with torch.no_grad():
@@ -399,16 +426,42 @@ def make_batched_eval(model_cfg, leak_cfgs: tuple[LeakageConfig, ...],
                 def per_cfg(bb_p, st, coarse, l1):
                     return (*head(bb_p, st, coarse, labels), l1)
 
-                metrics, aux, l1_s = _map_cfgs(per_cfg, bb_params_s, state_s,
-                                               coarse_s, l1_s)
-            else:
-                def per_cfg(p2m_p, bb_p, st, co):
-                    coarse, l1 = _layer1_coarse_one(p2m_p, events, model_cfg,
-                                                    co)
-                    return (*head(bb_p, st, coarse, labels), l1)
+                return _map_cfgs(per_cfg, bb_params_s, state_s, coarse_s,
+                                 l1_s)
 
-                metrics, aux, l1_s = _map_cfgs(per_cfg, p2m_ps, bb_params_s,
-                                               state_s, coeffs)
+            def per_cfg(p2m_p, bb_p, st, co):
+                coarse, l1 = _layer1_coarse_one(p2m_p, events, model_cfg, co)
+                return (*head(bb_p, st, coarse, labels), l1)
+
+            return _map_cfgs(per_cfg, p2m_ps, bb_params_s, state_s, coeffs)
+
+    return inner
+
+
+def make_batched_eval(model_cfg, leak_cfgs: tuple[LeakageConfig, ...],
+                      protocol: str = "frozen",
+                      device: str | torch.device | None = None,
+                      executor: SweepExecutor | None = None) -> Callable:
+    """Batched eval on ``device``: ``ev(p2m_ps, bb_params_s, state_s,
+    events, labels) → (metrics {"acc", "loss"} [G], aux {key: [G]}, l1)``
+    with the layer-1 spike statistics feeding bandwidth and energy. Under
+    ``protocol="unfrozen"`` the first argument carries per-variant layer-1
+    params and the whole forward runs per variant. A sharded ``executor``
+    splits the variant axis as :func:`make_batched_finetune_step` does;
+    the outputs come back unpadded."""
+    _check_protocol(protocol)
+    _check_curvefit(model_cfg, protocol)
+    ex = executor or SweepExecutor()
+    G = len(leak_cfgs)
+    coeffs = ex.pad_stacked(_coeffs(model_cfg, leak_cfgs), G)
+    p2m_spec = REP if protocol == "frozen" else AXIS
+    run = _sharded(ex, resolve_device(device),
+                   lambda d: _eval_body(model_cfg, protocol, d),
+                   (AXIS, p2m_spec, AXIS, AXIS, REP, REP))
+
+    def ev(p2m_ps, bb_params_s, state_s, events, labels):
+        metrics, aux, l1_s = ex.gather(
+            run(coeffs, p2m_ps, bb_params_s, state_s, events, labels), G)
         return metrics, aux, _merge_grouped_l1(l1_s)
 
     return ev
@@ -420,11 +473,6 @@ def make_batched_eval(model_cfg, leak_cfgs: tuple[LeakageConfig, ...],
 
 def _to(tree: Any, dev: torch.device) -> Any:
     return tree_map(lambda t: t.to(dev), tree)
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def _fork(gen: torch.Generator) -> torch.Generator:
@@ -544,6 +592,7 @@ def _timed_batch(source, gen, sweep, t_ms: float, ns: int, clock: list):
 
 def run_grid(data_cfg, model_cfg, sweep, grid: SweepGrid, log: Any = print,
              *, protocol: str = "frozen", pretrained: tuple | None = None,
+             executor: SweepExecutor | None = None,
              eval_data=None, keep_params: bool = False,
              device: str | torch.device | None = None) -> GridResult:
     """Run the batched co-design sweep on ``device`` (cuda unless the
@@ -555,11 +604,14 @@ def run_grid(data_cfg, model_cfg, sweep, grid: SweepGrid, log: Any = print,
     ``protocol`` selects phase 2 (``"frozen"`` or ``"unfrozen"``).
     ``pretrained`` injects a shared ``(params, state, generator)`` phase-1
     result (see :func:`run_protocols`); the generator is copied, so the
-    caller's stays at the post-pretrain state. The reference's
-    ``executor`` is not taken: the port runs one device
-    (``core/sweep_exec.py``). ``eval_data`` draws the
-    accuracy-eval batches from another source. ``keep_params=True`` keeps
-    each cell's trained weights on ``GridResult.final_params``.
+    caller's stays at the post-pretrain state. ``executor`` shards the
+    stacked variant axis (``SweepExecutor(devices=n)``,
+    ``core/sweep_exec.py``): the stacked trees pad to a multiple of n and
+    each shard trains and evaluates its variants on its device; records,
+    retention and ``final_params`` are unpadded and equal to the
+    one-device run's. ``eval_data`` draws the accuracy-eval batches from
+    another source. ``keep_params=True`` keeps each cell's trained
+    weights on ``GridResult.final_params``.
 
     Records hold Python numbers: each eval batch's per-variant tensors go
     to the host in one transfer. ``train_time_s`` is host-clock time of
@@ -568,12 +620,16 @@ def run_grid(data_cfg, model_cfg, sweep, grid: SweepGrid, log: Any = print,
     reference."""
     _check_protocol(protocol)
     dev = resolve_device(device)
+    ex = executor or SweepExecutor()
+    places = ex.bind(dev)
     source = sources_mod.as_source(data_cfg)
     eval_source = (sources_mod.as_source(eval_data)
                    if eval_data is not None else source)
     leak_cfgs = expand_leak_configs(grid, model_cfg.p2m.leak)
     labels = tuple(config_label(lc) for lc in leak_cfgs)
     G = len(leak_cfgs)
+    G_pad = ex.padded_size(G)
+    cuda_places = [p for p in dict.fromkeys(places) if p.type == "cuda"]
     t_grid = grid.t_intg_grid_ms
     cells = variant_grid.outer_cells(grid, model_cfg.p2m.n_sub)
 
@@ -607,31 +663,37 @@ def run_grid(data_cfg, model_cfg, sweep, grid: SweepGrid, log: Any = print,
     final_params: dict[tuple[float, int], dict] = {}
     timings: dict[tuple[float, int], dict] = {}
     for t_ms, ns in cells:
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(dev)
+        for p in cuda_places:
+            torch.cuda.reset_peak_memory_stats(p)
         ti = t_grid.index(t_ms)
         cfg_t = replace(
             model_cfg,
             p2m=replace(model_cfg.p2m, t_intg_ms=t_ms, n_sub=ns,
                         mode="curvefit"))
+        # G_pad rows: a sharded run's padding rows train real copies of the
+        # last variant, dropped on read-back
         if protocol == "unfrozen":
             # every variant starts from the shared pretrain and learns its
             # own layer-1 copy, jointly with its backbone
-            p2m_ps = p2m_layer.stack_p2m_params(pre_params["p2m"], G)
+            p2m_ps = p2m_layer.stack_p2m_params(pre_params["p2m"], G_pad)
             bb_params_s = p2m_layer.stack_p2m_params(pre_params["backbone"],
-                                                     G)
+                                                     G_pad)
             opt_state_s = _map_cfgs(opt_unfrozen.init,
                                     {"p2m": p2m_ps, "backbone": bb_params_s})
+            p2m_ps = ex.split(p2m_ps, places)
             opt_t = opt_unfrozen
         else:
             p2m_ps = {k: v.clone() for k, v in pre_params["p2m"].items()}
             bb_params_s = p2m_layer.stack_p2m_params(pre_params["backbone"],
-                                                     G)
+                                                     G_pad)
             opt_state_s = _map_cfgs(opt.init, bb_params_s)
             opt_t = opt
-        state_s = p2m_layer.stack_p2m_params(pre_state, G)
+        bb_params_s, opt_state_s, state_s = ex.split(
+            (bb_params_s, opt_state_s,
+             p2m_layer.stack_p2m_params(pre_state, G_pad)), places)
         step_fn = make_batched_finetune_step(cfg_t, leak_cfgs, opt_t,
-                                             protocol=protocol, device=dev)
+                                             protocol=protocol, device=dev,
+                                             executor=ex)
         # warm-up step: first-call allocations stay out of the train time
         # (the paper's training-time column is steady-state epochs)
         ev_w, lab_w = source.sample_batch(gen, sweep.batch_size, t_ms,
@@ -639,7 +701,7 @@ def run_grid(data_cfg, model_cfg, sweep, grid: SweepGrid, log: Any = print,
         p2m_ps, bb_params_s, opt_state_s, state_s, m, _ = step_fn(
             p2m_ps, bb_params_s, opt_state_s, state_s, ev_w, lab_w)
         del ev_w, lab_w
-        _sync(dev)
+        ex.synchronize(places)
         sample_s = [0.0]
         t0 = time.perf_counter()
         for _ in range(sweep.finetune_steps):
@@ -647,13 +709,13 @@ def run_grid(data_cfg, model_cfg, sweep, grid: SweepGrid, log: Any = print,
             p2m_ps, bb_params_s, opt_state_s, state_s, m, _ = step_fn(
                 p2m_ps, bb_params_s, opt_state_s, state_s, ev, lab)
             del ev, lab
-        _sync(dev)
+        ex.synchronize(places)
         train_s = time.perf_counter() - t0
 
         if protocol == "unfrozen":
             # re-linearize each variant's leak around its learned kernel:
             # circuit (a)'s drift is a trained quantity here
-            w_q_s = analog_mod.quantize_weights(p2m_ps["w"][:G],
+            w_q_s = analog_mod.quantize_weights(ex.gather(p2m_ps["w"], G),
                                                 cfg_t.p2m.analog)
             lk_s = leakage.grouped_leak_params(w_q_s, leak_cfgs)
             learned_surface = torch.stack(
@@ -661,13 +723,14 @@ def run_grid(data_cfg, model_cfg, sweep, grid: SweepGrid, log: Any = print,
                             dim=-1) for t in t_grid], dim=1).tolist()
 
         if keep_params:
-            final_params[(t_ms, ns)] = {"p2m": p2m_ps,
-                                        "backbone": bb_params_s,
-                                        "state": state_s}
+            final_params[(t_ms, ns)] = {
+                "p2m": (ex.gather(p2m_ps, G) if protocol == "unfrozen"
+                        else p2m_ps),
+                **ex.gather({"backbone": bb_params_s, "state": state_s}, G)}
 
         # batched eval: accuracy + spike statistics for bandwidth/energy
         eval_fn = make_batched_eval(cfg_t, leak_cfgs, protocol=protocol,
-                                    device=dev)
+                                    device=dev, executor=ex)
         accs: list[list[float]] = [[] for _ in range(G)]
         l1_spikes = [0.0] * G
         in_events = 0.0
@@ -699,9 +762,9 @@ def run_grid(data_cfg, model_cfg, sweep, grid: SweepGrid, log: Any = print,
                                "train_sample_s": sample_s[0],
                                "eval_s": eval_s,
                                "eval_sample_s": eval_sample_s[0]}
-        if dev.type == "cuda":
-            timings[(t_ms, ns)]["peak_bytes"] = \
-                torch.cuda.max_memory_allocated(dev)
+        if cuda_places:
+            timings[(t_ms, ns)]["peak_bytes"] = max(
+                torch.cuda.max_memory_allocated(p) for p in cuda_places)
         log(f"[sweep {protocol} t={t_ms}ms] sample_batch host "
             f"{sample_s[0]:.3f} s of train {train_s:.3f} s, "
             f"{eval_sample_s[0]:.3f} s of eval {eval_s:.3f} s")
@@ -751,7 +814,8 @@ def run_protocols(data_cfg, model_cfg, sweep, grid: SweepGrid,
                   protocols: tuple[str, ...] = PROTOCOLS,
                   log: Any = print,
                   eval_data=None, keep_params: bool = False,
-                  device: str | torch.device | None = None
+                  device: str | torch.device | None = None,
+                  executor: SweepExecutor | None = None
                   ) -> dict[str, GridResult]:
     """Run the grid under several phase-2 protocols off one shared phase-1
     pretrain. Every protocol draws from a copy of the post-pretrain
@@ -765,8 +829,8 @@ def run_protocols(data_cfg, model_cfg, sweep, grid: SweepGrid,
                                    device=device)
     return {p: run_grid(data_cfg, model_cfg, sweep, grid, log=log,
                         protocol=p, pretrained=pretrained,
-                        eval_data=eval_data, keep_params=keep_params,
-                        device=device)
+                        executor=executor, eval_data=eval_data,
+                        keep_params=keep_params, device=device)
             for p in protocols}
 
 

@@ -31,7 +31,16 @@ each stream a variant request, cycled round-robin: an entry name or a
 requests are rejected and counted). ``--adapt`` turns on per-lane online
 adaptation (``--adapt-rule``, ``--adapt-lr``, ``--adapt-lr-theta``);
 ``--adapt-export DIR`` harvests every adapted lane into a delta checkpoint
-``DIR/lane<N>``. ``--devices`` takes 1 only (one card).
+``DIR/lane<N>``. ``--devices N`` shards the lane axis over N devices
+(``stream/shard.py``: cuda:0 … cuda:N-1, or N host shards with
+``--device cpu``); more than the visible cards exit 2 before any stream
+is opened.
+
+A ``ValueError`` or ``OSError`` past the argument checks (a bad
+``--devices``, a checkpoint that does not match its sweep record, a
+dataset the smoke grid does not fit) prints ``error: ...`` and exits 2,
+as the reference's launcher does; a ``--smoke`` fixture is removed
+either way.
 
 It runs on ``--device`` (default ``cuda``; the kernels build into
 ``build/kernels/`` at first use).
@@ -163,7 +172,10 @@ def main(argv: list[str] | None = None) -> int:
                     help="harvest every adapted lane into a delta "
                          "checkpoint DIR/lane<N> (requires --adapt)")
     ap.add_argument("--devices", type=int, default=None,
-                    help="lane-mesh devices; the port runs 1")
+                    help="shard the lane axis over this many devices "
+                         "(capacity is padded up to a multiple; "
+                         "bit-identical to --devices 1). Default: "
+                         "unsharded")
     ap.add_argument("--bin-workers", type=int, default=None,
                     help="host binning worker threads (default: one per "
                          "device)")
@@ -196,17 +208,19 @@ def main(argv: list[str] | None = None) -> int:
               f"--data-root (or --smoke to generate a fixture)",
               file=sys.stderr)
         return 2
-    executor = make_lane_executor(args.devices)
-
     fixture_tmp = None
     if dataset in sources.FILE_BACKED and data_root is None:
         fixture_tmp = tempfile.mkdtemp(prefix=f"p2m-{dataset}-fixture-")
         data_root = fixture_tmp
-        print(f"[stream] generating {dataset} fixture under {data_root}")
     try:
+        executor = make_lane_executor(args.devices, device=args.device)
         if fixture_tmp is not None:
+            print(f"[stream] generating {dataset} fixture under {data_root}")
             _make_fixture(dataset, Path(fixture_tmp))
         return _serve(args, dataset, data_root, executor)
+    except (ValueError, OSError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     finally:
         if fixture_tmp is not None:
             shutil.rmtree(fixture_tmp, ignore_errors=True)
@@ -304,6 +318,11 @@ def _serve(args, dataset: str, data_root: str | None, executor) -> int:
     print(f"throughput     {thr['events_per_s']:.0f} events/s   "
           f"{thr['readouts_per_s']:.1f} readouts/s   wall "
           f"{thr['wall_s']:.2f} s")
+    sh = art["sharding"]
+    print(f"sharding       {sh['devices']} device(s) x "
+          f"{sh['lanes_per_shard']} lanes  (padded capacity "
+          f"{sh['padded_capacity']}, {sh['bin_workers']} bin worker(s))   "
+          f"{thr['events_per_s_per_device']:.0f} events/s/device")
     print(f"admission      offered {adm['n_offered']}  admitted "
           f"{adm['n_admitted']}  shed {adm['n_shed']}  rejected "
           f"{adm['n_rejected']}  deferred {adm['n_deferred']}  max open "

@@ -16,8 +16,10 @@ each axis also has an explicit value flag. ``--protocol`` picks phase 2:
   python -m repro_torch.launch.sweep --grid paper --circuits a c \\
       --t-intg 1 10 100 1000 --mismatch 0.02 0.06
 
-A T_INTG that does not divide the backbone's coarse window exits with
-code 2.
+``--devices N`` shards the stacked variant axis (``core/sweep_exec.py``;
+the artifact records ``devices``). A T_INTG that does not divide the
+backbone's coarse window, or more ``--devices`` than there are visible
+cards, exits with code 2 before any compute.
 """
 from __future__ import annotations
 
@@ -90,11 +92,16 @@ def run_codesign_grid(args) -> int:
             return 2
 
     protocols = engine.resolve_protocols(args.protocol)
-    executor = make_executor(args.devices)
+    try:
+        executor = make_executor(args.devices, device=args.device)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
 
     t0 = time.time()
     results = engine.run_protocols(data, model, sweep_cfg, grid,
-                                   protocols=protocols, eval_data=eval_data, device=args.device)
+                                   protocols=protocols, executor=executor,
+                                   eval_data=eval_data, device=args.device)
     wall_s = time.time() - t0
 
     out = Path(args.out)
@@ -159,7 +166,9 @@ def main(argv: list[str] | None = None) -> int:
                     help="event sub-slots per window (outer loop with "
                          "T_INTG)")
     ap.add_argument("--devices", type=int, default=None,
-                    help="cards for the variant axis (1 only)")
+                    help="shard the stacked variant axis over this many "
+                         "devices (cuda:0 ... cuda:N-1, or N host shards "
+                         "with --device cpu); records equal --devices 1")
     ap.add_argument("--protocol", type=str, default="both",
                     choices=["frozen", "unfrozen", "both"],
                     help="phase-2 protocol(s): frozen layer 1 (paper §3), "

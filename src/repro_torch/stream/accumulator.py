@@ -26,6 +26,12 @@ index into a stacked numerics ``bundle`` (:func:`stack_entries`), runs
 each served entry's full-lane-batch fold and readout, and keeps for every
 lane the rows of the entry it is bound to. Lanes never mix, so a lane's
 state is bit-identical to a single-variant serve of its entry.
+
+Both take ``executor=`` (``stream/shard.LaneExecutor``): a sharded one
+splits the lane axis into contiguous per-device blocks, each shard with
+its own lane table and its copy of the numerics on its device, and runs
+the fold (one K2 or K3 launch per shard per chunk on ``cuda``) and the
+readout shard by shard.
 """
 from __future__ import annotations
 
@@ -36,9 +42,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import analog, leakage, p2m_layer, snn
+from repro_torch.core.sweep_exec import AXIS, REP
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.kernels.stream_fold import ops as stream_fold_ops
 from repro_torch.stream.deploy import Deployment, tree_to
+from repro_torch.stream.shard import LaneExecutor, shard_lane_fns
 from repro_torch.utils import tree_map
 
 
@@ -171,15 +179,45 @@ def _layer1_readout(x: torch.Tensor, coarse: torch.Tensor, drift, theta,
     return {"spikes": spikes, "pooled": pooled, "coarse": coarse + pooled}
 
 
+def backbone_lanes(nb_of: Callable[[int], dict], mem: dict,
+                   coarse: torch.Tensor, rows: np.ndarray, bb_cfg
+                   ) -> tuple[torch.Tensor, dict]:
+    """One backbone step of each lane in ``rows`` (host ints), one lane a
+    call, under ``nb_of(lane)``'s weights. A batched step rounds its
+    products differently at another batch size (on the CPU the fc0
+    product at batch 1; on the card the membranes at 8 lanes against 16),
+    so a lane's logits and membranes are kept the same bits whatever lanes
+    share its table: a sharded serve equals an unsharded one. The backbone
+    steps only at coarse-window boundaries, so the loop is rare. Rows
+    outside ``rows`` get zero logits and keep their membranes (the caller
+    masks them away)."""
+    logits = None
+    mem2 = {k: v.clone() for k, v in mem.items()}
+    for i in rows:
+        i = int(i)
+        nb = nb_of(i)
+        lg, m = snn.spiking_cnn_stream_step(
+            nb["backbone"], nb["bn_state"],
+            {k: v[i:i + 1] for k, v in mem.items()}, coarse[i:i + 1], bb_cfg)
+        if logits is None:
+            logits = lg.new_zeros((coarse.shape[0],) + lg.shape[1:])
+        logits[i] = lg[0]
+        for k, v in m.items():
+            mem2[k][i] = v[0]
+    return logits, mem2
+
+
 def _readout_core(state: dict, nb: dict, *, analog_cfg, bb_cfg,
-                  step_backbone: bool = True) -> dict:
-    """T_INTG readout over every lane: :func:`_layer1_readout` and
-    (``step_backbone``) one backbone step. Masking is the caller's job."""
+                  rows: np.ndarray = (), nb_of=None) -> dict:
+    """T_INTG readout over every lane: :func:`_layer1_readout`, then one
+    backbone step of the lanes ``rows`` (:func:`backbone_lanes`, under
+    ``nb_of(lane)``'s weights, default ``nb``). Masking is the caller's
+    job."""
     ro = _layer1_readout(state["x"], state["coarse"], nb["drift"],
                          nb["theta"], nb["pv"], analog_cfg)
-    if step_backbone:
-        ro["logits_t"], ro["mem2"] = snn.spiking_cnn_stream_step(
-            nb["backbone"], nb["bn_state"], state["mem"], ro["coarse"],
+    if len(rows):
+        ro["logits_t"], ro["mem2"] = backbone_lanes(
+            nb_of or (lambda _: nb), state["mem"], ro["coarse"], rows,
             bb_cfg)
     return ro
 
@@ -250,7 +288,8 @@ def _lane_table(dep: Deployment, capacity: int, chunk_slots: int,
 
 def make_stream_fns(dep: Deployment, *, capacity: int, chunk_slots: int,
                     fold_mode: str = "deposit",
-                    device: str | torch.device | None = None) -> StreamFns:
+                    device: str | torch.device | None = None,
+                    executor: LaneExecutor | None = None) -> StreamFns:
     """Build the lane-batched fold/readout steps for ``dep`` on ``device``.
 
     ``chunk_slots`` fine sub-slots make one replay chunk (``fold`` takes
@@ -262,9 +301,22 @@ def make_stream_fns(dep: Deployment, *, capacity: int, chunk_slots: int,
     ``reset_lane`` zeroes one lane's state in place (the state tensors are
     owned by the caller's serving loop, so no copy is needed); ``fold`` and
     ``readout`` return new state dicts.
+
+    A sharded ``executor`` splits the lane axis: ``capacity`` must be a
+    multiple of ``executor.devices`` (the engine pads it), each shard runs
+    these steps for its lanes on its device, and the state's leaves are
+    :class:`~repro_torch.core.sweep_exec.Blocks`.
     """
     dev = resolve_device(device)
     _check_fold_mode(fold_mode)
+    if executor is not None and executor.is_sharded:
+        return shard_lane_fns(
+            executor, capacity, dev,
+            lambda cap, place: make_stream_fns(
+                dep, capacity=cap, chunk_slots=chunk_slots,
+                fold_mode=fold_mode, device=place),
+            {"init_state": (), "fold": (AXIS,) * 3,
+             "readout": (AXIS,) * 3})
     p2m_cfg, bb_cfg = dep.model_cfg.p2m, dep.model_cfg.backbone
     init_state, reset_lane, lane_mask = _lane_table(dep, capacity,
                                                     chunk_slots, dev)
@@ -286,13 +338,13 @@ def make_stream_fns(dep: Deployment, *, capacity: int, chunk_slots: int,
         """T_INTG-boundary readout: ``active`` lanes read out and precharge;
         ``coarse_mask ⊆ active`` lanes completed a coarse window and step
         the backbone and the logit sum. The backbone runs only when some
-        lane needs it — the other lanes' results are masked away either
-        way. Returns the new state and per-lane outputs."""
-        step = bool(np.any(coarse_mask))
+        lane needs it, and only on those lanes. Returns the new state and
+        per-lane outputs."""
+        rows = np.flatnonzero(coarse_mask)
         ro = _readout_core(state, nb, analog_cfg=p2m_cfg.analog,
-                           bb_cfg=bb_cfg, step_backbone=step)
+                           bb_cfg=bb_cfg, rows=rows)
         return _commit_readout(state, ro, lane_mask(active),
-                               lane_mask(coarse_mask), step)
+                               lane_mask(coarse_mask), len(rows) > 0)
 
     return StreamFns(init_state=init_state, reset_lane=reset_lane, fold=fold,
                      readout=readout, in_hw=bb_cfg.input_hw,
@@ -307,7 +359,8 @@ def served_entries(active: np.ndarray, entry: np.ndarray) -> list[int]:
 
 def make_multi_stream_fns(dep: Deployment, *, capacity: int,
                           chunk_slots: int, fold_mode: str = "deposit",
-                          device: str | torch.device | None = None
+                          device: str | torch.device | None = None,
+                          executor: LaneExecutor | None = None
                           ) -> MultiStreamFns:
     """Build the multi-variant fold/readout steps (registry serving).
     ``dep`` is the engine's anchor entry: it pins the shared geometry (the
@@ -323,9 +376,21 @@ def make_multi_stream_fns(dep: Deployment, *, capacity: int,
     entry. Bundle slots that no active lane is bound to are skipped: the
     gather would never read their rows, and a fold or readout of an
     inactive lane is masked away.
+
+    A sharded ``executor`` splits the lane axis and the per-lane ``entry``
+    index as :func:`make_stream_fns` does; the bundle must then be
+    ``executor.replicate``-d, every shard carrying all E entries.
     """
     dev = resolve_device(device)
     _check_fold_mode(fold_mode)
+    if executor is not None and executor.is_sharded:
+        return shard_lane_fns(
+            executor, capacity, dev,
+            lambda cap, place: make_multi_stream_fns(
+                dep, capacity=cap, chunk_slots=chunk_slots,
+                fold_mode=fold_mode, device=place),
+            {"init_state": (), "fold": (AXIS,) * 4 + (REP,),
+             "readout": (AXIS,) * 4 + (REP,)})
     p2m_cfg, bb_cfg = dep.model_cfg.p2m, dep.model_cfg.backbone
     init_state, reset_lane, lane_mask = _lane_table(dep, capacity,
                                                     chunk_slots, dev)
@@ -352,23 +417,31 @@ def make_multi_stream_fns(dep: Deployment, *, capacity: int,
                 entry: np.ndarray, bundle: dict) -> tuple[dict, dict]:
         """The T_INTG readout of :func:`make_stream_fns`, each lane under its
         entry's numerics."""
-        step = bool(np.any(coarse_mask))
+        rows = np.flatnonzero(coarse_mask)
         ro = None
-        for e in served_entries(active, entry):
+        for e in served_entries(active, entry) or [0]:
+            # no active lane: every row is masked away, entry 0 stands in
             ro_e = _readout_core(state, take_entry(bundle, e),
-                                 analog_cfg=p2m_cfg.analog, bb_cfg=bb_cfg,
-                                 step_backbone=step)
+                                 analog_cfg=p2m_cfg.analog, bb_cfg=bb_cfg)
             if ro is None:
                 ro = ro_e
                 continue
             sel = bound(active, entry, e)
             ro = tree_map(lambda new, old: _mask(sel, new, old), ro_e, ro)
-        if ro is None:        # no active lane: every row is masked away
-            ro = _readout_core(state, take_entry(bundle, 0),
-                               analog_cfg=p2m_cfg.analog, bb_cfg=bb_cfg,
-                               step_backbone=step)
+        if len(rows):
+            nbs = {}
+            entry = np.asarray(entry)
+
+            def nb_of(lane: int) -> dict:
+                e = int(entry[lane])
+                if e not in nbs:
+                    nbs[e] = take_entry(bundle, e)
+                return nbs[e]
+
+            ro["logits_t"], ro["mem2"] = backbone_lanes(
+                nb_of, state["mem"], ro["coarse"], rows, bb_cfg)
         return _commit_readout(state, ro, lane_mask(active),
-                               lane_mask(coarse_mask), step)
+                               lane_mask(coarse_mask), len(rows) > 0)
 
     return MultiStreamFns(init_state=init_state, reset_lane=reset_lane,
                           fold=fold, readout=readout, in_hw=bb_cfg.input_hw,

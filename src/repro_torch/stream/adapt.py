@@ -28,9 +28,10 @@ or ``reward`` (the gradient toward the lane's own prediction accumulates
 into a trace that a ±1 reward gates into the weights).
 
 The reference takes the per-lane gradients with ``jax.vmap(jax.grad)``.
-Here they come from one backward over the sum of the lanes' losses, which
-is exact: nothing in the readout reduces across lanes (BN runs on its
-running statistics), so each lane's gradient sees its own loss only.
+Here each lane takes one backward pass of its own: nothing in the readout
+reduces across lanes (BN runs on its running statistics), and a lane's
+gradient then has the same bits whatever lanes share its table, sharded
+or not (a batched pass rounds differently at another batch size).
 
 Adaptation runs its own eager per-lane fold, as the reference runs its XLA
 scan: the streaming-fold kernels (K2/K3) share one weight tensor across
@@ -46,15 +47,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import snn
 from repro_torch.core.snn import same_pads
+from repro_torch.core.sweep_exec import AXIS, REP
+from repro_torch.kernels.backend import resolve_device
 from repro_torch.stream.accumulator import (_commit_readout, _layer1_readout,
-                                            _mask, entry_numerics,
+                                            _mask, backbone_lanes,
+                                            entry_numerics,
                                             make_multi_stream_fns,
                                             make_stream_fns,
                                             relinearized_numerics,
-                                            served_entries, take_entry)
+                                            take_entry)
 from repro_torch.stream.deploy import Deployment, tree_to
+from repro_torch.stream.shard import LaneExecutor, shard_lane_fns
 
 RULES = ("surrogate", "reward")
 
@@ -114,24 +118,35 @@ def adapt_entry_numerics(dep: Deployment,
 
 
 def lane_conv(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
-    """SAME conv of every lane with its own weights, as one conv grouped by
-    lane: x [N, L, H, W, C], w [L, k, k, C, F] → [N, L, H', W', F]."""
+    """SAME conv of every lane with its own weights: x [N, L, H, W, C], w
+    [L, k, k, C, F] → [N, L, H', W', F]. Summed tap by tap (kh, kw, C) in
+    a fixed order with elementwise products, so a lane's sums are the same
+    whatever the number of lanes in the call (a conv grouped by lane picks
+    its algorithm by the group count, and an adapted weight
+    ``quantize(w_q + dw)`` is off the level grid by its straight-through
+    roundoff, so the order of its sums shows)."""
     N, L, H, W, C = x.shape
-    k, Fo = w.shape[1], w.shape[-1]
+    k = w.shape[1]
     pt, pb = same_pads(H, k, stride)
     pl, pr = same_pads(W, k, stride)
-    xc = F.pad(x.permute(0, 1, 4, 2, 3).reshape(N, L * C, H, W),
-               (pl, pr, pt, pb))
-    y = F.conv2d(xc, w.permute(0, 4, 3, 1, 2).reshape(L * Fo, C, k, k),
-                 stride=stride, groups=L)
-    return y.reshape(N, L, Fo, y.shape[-2], y.shape[-1]).permute(
-        0, 1, 3, 4, 2)
+    xp = F.pad(x, (0, 0, pl, pr, pt, pb))
+    ho = stride * (-(-H // stride) - 1) + 1       # the taps' row span
+    wo = stride * (-(-W // stride) - 1) + 1
+    out = None
+    for i in range(k):
+        for j in range(k):
+            patch = xp[:, :, i:i + ho:stride, j:j + wo:stride]
+            for c in range(C):
+                term = patch[..., c, None] * w[None, :, None, None, i, j, c]
+                out = term if out is None else out + term
+    return out
 
 
 def make_adapt_fns(dep: Deployment, *, capacity: int, chunk_slots: int,
                    adapt: AdaptConfig, fold_mode: str | None = None,
                    device: str | torch.device | None = None,
-                   registry: bool = False) -> AdaptFns:
+                   registry: bool = False,
+                   executor: LaneExecutor | None = None) -> AdaptFns:
     """Build the per-lane-adapting fold/readout for ``dep`` on ``device``.
 
     The serving forward keeps the frozen engine's semantics (masking, state
@@ -139,7 +154,9 @@ def make_adapt_fns(dep: Deployment, *, capacity: int, chunk_slots: int,
     ``theta + dtheta`` numerics. ``registry=True`` builds the multi-variant
     flavour: fold/readout take ``(entry, bundle)`` and each lane's base
     numerics come from its entry before its deltas apply. ``fold_mode``
-    must stay ``None``: the kernel fold modes cannot adapt.
+    must stay ``None``: the kernel fold modes cannot adapt. A sharded
+    ``executor`` splits the lane axis as ``accumulator.make_stream_fns``
+    does: each lane's deltas and traces live on its shard's device.
     """
     if fold_mode is not None:
         raise ValueError(
@@ -147,6 +164,15 @@ def make_adapt_fns(dep: Deployment, *, capacity: int, chunk_slots: int,
             f"fold_mode={fold_mode!r} asks for a streaming-fold kernel, "
             f"which shares one weight tensor across lanes and has no "
             f"backward — leave fold_mode=None, or drop adapt")
+    if executor is not None and executor.is_sharded:
+        extra = (AXIS, REP) if registry else ()
+        return shard_lane_fns(
+            executor, capacity, resolve_device(device),
+            lambda cap, place: make_adapt_fns(
+                dep, capacity=cap, chunk_slots=chunk_slots, adapt=adapt,
+                device=place, registry=registry),
+            {"init_state": (), "init_adapt": (),
+             "fold": (AXIS,) * 4 + extra, "readout": (AXIS,) * 5 + extra})
     base = (make_multi_stream_fns if registry else make_stream_fns)(
         dep, capacity=capacity, chunk_slots=chunk_slots, device=device)
     dev = base.device
@@ -216,39 +242,15 @@ def make_adapt_fns(dep: Deployment, *, capacity: int, chunk_slots: int,
         return {key: torch.stack([nb["pv"][key] for nb in nbs])[:, None, None]
                 for key in ("gain", "offset")}
 
-    def backbone_step(rows_entry: np.ndarray | None, extra: tuple,
-                      mem: dict, coarse: torch.Tensor
-                      ) -> tuple[torch.Tensor, dict]:
-        """One backbone step of a batch of lanes, each row under its
-        entry's weights (``rows_entry``, registry) or ``dep``'s: one batched
-        step per distinct entry, rows kept where the entry is the row's."""
-        if not registry:
-            return snn.spiking_cnn_stream_step(nb0["backbone"],
-                                               nb0["bn_state"], mem, coarse,
-                                               bb_cfg)
-        out = None
-        for e in np.unique(rows_entry):
-            nb = take_entry(extra[1], int(e))
-            got = snn.spiking_cnn_stream_step(nb["backbone"], nb["bn_state"],
-                                              mem, coarse, bb_cfg)
-            if out is None:
-                out = got
-                continue
-            sel = torch.as_tensor(rows_entry == e, device=dev)
-            out = (_mask(sel, got[0], out[0]),
-                   {key: _mask(sel, v, out[1][key])
-                    for key, v in got[1].items()})
-        return out
-
     @torch.no_grad()
     def fold(state: dict, astate: dict, frames: torch.Tensor,
              active: np.ndarray, *extra) -> tuple[dict, dict]:
         """One replay chunk under per-lane numerics, with the per-filter
-        event accumulator ``E`` riding the same decay. The deposits are one
-        conv grouped by lane: with integer event counts and weights on the
-        quantizer's level grid every product and partial sum is exact, so
-        they are the shared-weight conv's bits (``_conv``) in any order of
-        summation."""
+        event accumulator ``E`` riding the same decay. The deposits are each
+        lane's conv under its own weights (:func:`lane_conv`): with integer
+        event counts and weights on the quantizer's level grid every product
+        and partial sum is exact, so they are the shared-weight conv's bits
+        (``_conv``) in any order of summation."""
         act = lane_mask(active)
         ln = relin_lanes(lane_bases(extra), astate["dw"], astate["dtheta"])
         frames = frames.to(dev)
@@ -270,8 +272,9 @@ def make_adapt_fns(dep: Deployment, *, capacity: int, chunk_slots: int,
         the truncated depth-1 window through the curve-fit seam (the decay
         weighting inside ``E`` and the earlier windows' coarse counts are
         constants). ``x_lin[h, w, f] = conv(E[f], w_q[..., f])`` is the
-        diagonal of the reference's full ``conv(E, w_q)``, computed as a
-        conv grouped by filter (and lane) that forms only the diagonal."""
+        diagonal of the reference's full ``conv(E, w_q)``, computed as
+        :func:`lane_conv` over (lane, filter) pairs, which forms only the
+        diagonal."""
         idx = torch.as_tensor(lanes, device=dev)
         L = len(lanes)
         with torch.enable_grad():
@@ -290,10 +293,10 @@ def make_adapt_fns(dep: Deployment, *, capacity: int, chunk_slots: int,
                                  ln["drift"][:, None, None, :],
                                  ln["theta"][:, None, None, None], pv,
                                  analog_cfg)
-            logits_t, _ = backbone_step(
-                np.asarray(extra[0])[lanes] if registry else None, extra,
-                {key: v[idx] for key, v in state["mem"].items()},
-                ro["coarse"])
+            logits_t, _ = backbone_lanes(
+                lambda j: sub[j], {key: v[idx] for key, v in
+                                   state["mem"].items()},
+                ro["coarse"], np.arange(L), bb_cfg)
             logp = torch.log_softmax(logits_t, dim=-1)
             loss = -logp[torch.arange(L, device=dev), target[idx]].sum()
             g_w, g_th = torch.autograd.grad(loss, (dw, dth))
@@ -315,17 +318,11 @@ def make_adapt_fns(dep: Deployment, *, capacity: int, chunk_slots: int,
                              ln["theta"][:, None, None, None], lane_pv(nbs),
                              analog_cfg)
         if step:
-            rows_entry = None
-            if registry:
-                # every lane steps under a served entry's backbone (as the
-                # frozen multi-variant readout does); an inactive lane's
-                # row is masked away
-                entry = np.asarray(extra[0])
-                served = served_entries(active, entry) or [int(entry[0])]
-                rows_entry = np.where(np.asarray(active, bool), entry,
-                                      served[0])
-            ro["logits_t"], ro["mem2"] = backbone_step(
-                rows_entry, extra, state["mem"], ro["coarse"])
+            # the lanes at a coarse boundary, each under its own entry's
+            # backbone (the frozen readouts' backbone_lanes)
+            ro["logits_t"], ro["mem2"] = backbone_lanes(
+                lambda i: nbs[i], state["mem"], ro["coarse"],
+                np.flatnonzero(coarse_mask), bb_cfg)
         new_state, out = _commit_readout(state, ro, act, cm, step)
 
         # ---- local update (per lane; no lane reads another) ----
@@ -345,11 +342,12 @@ def make_adapt_fns(dep: Deployment, *, capacity: int, chunk_slots: int,
             need = boundary
         g_w = torch.zeros_like(astate["dw"])
         g_th = torch.zeros_like(astate["dtheta"])
-        if need.any():
-            lanes = np.flatnonzero(need)
-            gw, gt = lane_grads(nbs, astate, state, lanes, tgt, extra)
-            idx = torch.as_tensor(lanes, device=dev)
-            g_w[idx], g_th[idx] = gw, gt
+        # one lane a pass (see the module docstring): a sharded serve
+        # learns the deltas of an unsharded one
+        for lane in np.flatnonzero(need):
+            gw, gt = lane_grads(nbs, astate, state, np.array([lane]), tgt,
+                                extra)
+            g_w[lane], g_th[lane] = gw[0], gt[0]
         if adapt.rule == "surrogate":
             dw_step, th_step = adapt.lr_w * g_w, adapt.lr_theta * g_th
             elig_w, elig_th = astate["elig_w"], astate["elig_theta"]
@@ -391,8 +389,8 @@ def make_adapt_fns(dep: Deployment, *, capacity: int, chunk_slots: int,
 def lane_stats(astate: dict) -> list[dict]:
     """Host-side per-lane rows for the v5 stats artifact: the lanes that
     applied at least one update, with their delta norms."""
-    dw = astate["dw"].detach().cpu().numpy()
-    dth = astate["dtheta"].detach().cpu().numpy()
+    dw = astate["dw"].cpu().numpy()
+    dth = astate["dtheta"].cpu().numpy()
     n_upd = astate["n_updates"].cpu().numpy()
     rows = []
     for lane in range(n_upd.shape[0]):

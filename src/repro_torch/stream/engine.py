@@ -34,8 +34,11 @@ each lane persistent weight/threshold deltas that a local rule updates at
 every labeled coarse-window readout; :meth:`StreamEngine.harvest` exports
 them (``deploy.save_adapt_delta``).
 
-``executor=`` takes a ``stream/shard.LaneExecutor``; only ``devices=1``
-runs in the port.
+**Sharding** (``executor=stream/shard.LaneExecutor(devices=n)``): the
+capacity pads up to a multiple of n, each shard folds and reads out its
+contiguous block of lanes on its own device (padding lanes are never
+admitted), and the artifact's ``sharding`` block records the geometry and
+each shard's admissions.
 """
 from __future__ import annotations
 
@@ -418,7 +421,8 @@ class StreamEngine:
         self.prefetch = prefetch
         self.adapt = adapt
         lanes = dict(capacity=self.padded_capacity,
-                     chunk_slots=self.chunk_slots, device=device)
+                     chunk_slots=self.chunk_slots, device=device,
+                     executor=self.executor)
         if adapt is not None:
             self.fold_mode = fold_mode
             self.fns = make_adapt_fns(dep, adapt=adapt, fold_mode=fold_mode,
@@ -442,6 +446,7 @@ class StreamEngine:
                     else make_multi_stream_fns)
             self.fns = make(dep, fold_mode=self.fold_mode, **lanes)
         self.device = self.fns.device
+        self._places = self.executor.bind(self.device)
         if self.registry is not None:
             # fixed-size param table: slot i holds the numerics of one
             # (name, uid) registration; refcounts count the resident lanes
@@ -453,8 +458,13 @@ class StreamEngine:
                 [None] * self.max_entries
             self._entry_refs = [0] * self.max_entries
             self._entry_nbs = [anchor_nb] * self.max_entries
-            self._bundle = stack_entries(self._entry_nbs)
+            self._bundle = self._stack()
             self._entry_of = np.zeros((self.padded_capacity,), np.int32)
+
+    def _stack(self) -> dict:
+        """The table's bundle, one copy on each shard's device."""
+        return self.executor.replicate(stack_entries(self._entry_nbs),
+                                       self._places)
 
     def _entry_numerics(self, dep: Deployment) -> dict:
         """One table slot's numerics on the engine's device (with the leak
@@ -502,7 +512,7 @@ class StreamEngine:
         self._entry_slots[victim] = key
         self._entry_nbs[victim] = self._entry_numerics(entry.dep)
         self._entry_refs[victim] = 1
-        self._bundle = stack_entries(self._entry_nbs)
+        self._bundle = self._stack()
         return victim
 
     def _unbind_entry(self, slot: int) -> None:
@@ -567,15 +577,15 @@ class StreamEngine:
     def _assemble(self, parts: list[list[tuple[int, np.ndarray]]]
                   ) -> torch.Tensor:
         """Workers' per-lane blocks → the fold's [padded_capacity,
-        chunk_slots, H, W, 2] batch on the device (unoccupied lanes stay
-        zero)."""
+        chunk_slots, H, W, 2] batch on the host (unoccupied lanes stay
+        zero); the fold moves each shard's block to its device."""
         h, w = self.fns.in_hw
         frames = np.zeros((self.padded_capacity, self.chunk_slots, h, w, 2),
                           np.float32)
         for part in parts:
             for lane_i, block in part:
                 frames[lane_i] = block
-        return torch.from_numpy(frames).to(self.device)
+        return torch.from_numpy(frames)
 
     # ------------------------------------------------------------------
     def serve(self, source: EventSource, n_streams: int, *, seed: int = 0,

@@ -923,18 +923,18 @@ def test_file_replay_rebins_to_offline_frames(dvs_root):
     assert (np.diff(replayed.t) >= 0).all()
 
 
-def test_smoke_nmnist_refusal_equals_reference(tmp_path):
+def test_smoke_nmnist_refusal_equals_reference(tmp_path, capsys):
     """--smoke's nmnist fixture (300 ms recordings) cannot hold the smoke
-    grid's 1000 ms point: the port raises the reference's message (the
-    reference's launcher prints it and exits 2)."""
+    grid's 1000 ms point: the port's launcher prints ``error:`` and the
+    reference's message and exits 2, as the reference's launcher does."""
     from repro_torch.launch import stream as launch
-    with pytest.raises(ValueError) as got:
-        launch.main(["--smoke", "--dataset", "nmnist", "--device", "cpu",
-                     "--out", str(tmp_path / "o")])
+    assert launch.main(["--smoke", "--dataset", "nmnist", "--device", "cpu",
+                        "--out", str(tmp_path / "o")]) == 2
+    got = capsys.readouterr().err.strip().splitlines()[-1]
     root = j_fixtures.make_nmnist_fixture(tmp_path / "nm", n_per_class=1)
     with pytest.raises(ValueError) as want:
         j_deploy.train_and_deploy(tmp_path / "j", dataset="nmnist",
                                   data_root=str(root), smoke=True,
                                   t_intg_grid_ms=T_GRID)
-    assert str(got.value) == str(want.value)
-    assert "T_INTG values [1000.0] do not divide" in str(got.value)
+    assert got == f"error: {want.value}"
+    assert "T_INTG values [1000.0] do not divide" in got

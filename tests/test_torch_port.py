@@ -130,14 +130,14 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(entry, no_gpu,
 ])
 def test_engine_refuses_later_slices(kwargs, what):
     """Registry, adaptation and the lane executor are ported; what stays
-    refused: a lane mesh over more than one card (NotImplementedError
-    naming ROADMAP.md), and adaptation through a streaming-fold kernel,
-    which cannot adapt (ValueError)."""
+    refused (ValueError): a lane mesh on cards the engine does not run on
+    (an executor never falls back to another device), and adaptation
+    through a streaming-fold kernel, which cannot adapt."""
     from repro_torch.stream.adapt import AdaptConfig
     from repro_torch.stream.shard import LaneExecutor
-    err = NotImplementedError if "executor" in kwargs else ValueError
-    with pytest.raises(err, match=what):
-        kw = {"executor": LaneExecutor(devices=kwargs["executor"])} \
+    with pytest.raises(ValueError, match=what):
+        kw = {"executor": LaneExecutor(devices=kwargs["executor"],
+                                       device="cuda")} \
             if "executor" in kwargs else \
             {"adapt": AdaptConfig(rule=kwargs["adapt"]),
              "fold_mode": kwargs["fold_mode"]}
@@ -156,15 +156,20 @@ def test_engine_refuses_a_registry():
                                   ["--devices", "2"], ["--smoke"],
                                   ["--dataset", "dvs128"]])
 def test_launcher_refuses_later_slices(argv, tmp_path, capsys):
-    """What the port does not run raises NotImplementedError (more than
-    one card); misuse of the registry and adaptation flags, and a
-    file-backed dataset with no --data-root outside --smoke, exit 2 with
-    ``error:`` before anything is built; ``--smoke`` (with --config
-    reduced, which --smoke overrides as in the reference) trains on its
-    dvs128 fixture and serves."""
+    """Misuse of the registry and adaptation flags, a file-backed dataset
+    with no --data-root outside --smoke, and more --devices than there are
+    visible cards exit 2 with ``error:`` before anything is built;
+    ``--smoke`` (with --config reduced, which --smoke overrides as in the
+    reference) trains on its dvs128 fixture and serves."""
     from repro_torch.launch import stream as launcher
     args = ["--device", "cpu", "--config", "reduced",
             "--out", str(tmp_path)] + argv
+    if argv[0] == "--devices":
+        more = str(torch.cuda.device_count() + int(argv[1]))
+        assert launcher.main(args[:-1] + [more, "--device", "cuda"]) == 2
+        assert capsys.readouterr().err.startswith("error: sharding")
+        assert not list(tmp_path.iterdir())
+        return
     if argv[0] in ("--registry", "--adapt-export", "--dataset"):
         assert launcher.main(args) == 2
         err = capsys.readouterr().err
@@ -178,9 +183,6 @@ def test_launcher_refuses_later_slices(argv, tmp_path, capsys):
         art = json.loads((tmp_path / "stream_serving_dvs128.json")
                          .read_text())
         assert art["n_streams"] == 2 and art["data"]["dataset"] == "dvs128"
-        return
-    with pytest.raises(NotImplementedError, match="later slice|ROADMAP"):
-        launcher.main(args)
 
 
 def test_port_checkpoint_loads_in_the_reference(tmp_path):

@@ -16,6 +16,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import p2m_dvs as j_configs
 from repro.stream import deploy as j_deploy
@@ -200,13 +201,14 @@ def test_variants_require_registry(deps):
 
 def test_lane_executor_is_the_identity_at_one_device(deps):
     """devices=1 is the identity path: no padding, one shard, the same
-    logits as an engine built without an executor; devices=2 raises."""
+    logits as an engine built without an executor; more cards than are
+    visible raise before any stream opens."""
     ex = make_lane_executor(None)
     assert ex == LaneExecutor() == make_lane_executor(1)
     assert ex.devices == 1 and not ex.is_sharded
     assert ex.padded_size(5) == 5 and ex.axis == "lane"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_lane_executor(2)
+    with pytest.raises(ValueError, match="visible"):
+        make_lane_executor(torch.cuda.device_count() + 2, device="cuda")
     with pytest.raises(ValueError, match=">= 1"):
         LaneExecutor(devices=0)
     make = replay_factory(3, HW, 1000.0, SLOT_US, N_CLASSES)

@@ -89,9 +89,11 @@ def test_stream_cli_smoke_serves_its_own_sweep(tmp_path):
     assert (out / "deploy" / "ckpt_frozen").is_dir()
 
 
-def test_stream_cli_serves_a_checkpoint_against_its_artifact(tmp_path):
+def test_stream_cli_serves_a_checkpoint_against_its_artifact(tmp_path,
+                                                           capsys):
     """--checkpoint with --artifact: the handshake loads and serves; an
-    artifact without the record is refused."""
+    artifact without the record is refused as the reference's launcher
+    refuses it: ``error:`` and the reference loader's message, exit 2."""
     from repro_torch.launch import stream as launcher
     from repro_torch.stream import deploy
 
@@ -106,9 +108,16 @@ def test_stream_cli_serves_a_checkpoint_against_its_artifact(tmp_path):
                           "--out", str(tmp_path / "o")]) == 0
     bad = tmp_path / "bad.json"
     bad.write_text(json.dumps({"schema": sweep.SCHEMA_V3, "records": []}))
-    with pytest.raises(ValueError, match="not found in the sweep"):
-        launcher.main(["--device", "cpu", "--checkpoint", ckpt,
-                       "--artifact", str(bad), "--out", str(tmp_path / "o")])
+    capsys.readouterr()
+    assert launcher.main(["--device", "cpu", "--checkpoint", ckpt,
+                          "--artifact", str(bad),
+                          "--out", str(tmp_path / "o")]) == 2
+    from repro.stream import deploy as j_deploy
+    with pytest.raises(ValueError) as want:
+        j_deploy.load_deployment(ckpt, str(bad))
+    err = capsys.readouterr().err.strip().splitlines()[-1]
+    assert err == f"error: {want.value}"
+    assert "not found in the sweep" in err
 
 
 @pytest.mark.parametrize("argv,what", [
@@ -117,14 +126,13 @@ def test_stream_cli_serves_a_checkpoint_against_its_artifact(tmp_path):
      "T_INTG values [1000.0] do not divide"),
 ])
 def test_stream_cli_smoke_fixture_is_a_later_slice(argv, what, tmp_path,
-                                                   monkeypatch):
+                                                   monkeypatch, capsys):
     """``--smoke`` on a file-backed dataset writes its fixture to a
     temporary directory and removes it after. dvs128 (the default) trains,
     deploys and serves it, and the stats gate passes the artifact; nmnist's
     300 ms recordings do not hold the smoke grid's 1000 ms point, which the
-    reference's launcher refuses with the same message (it prints it and
-    exits 2; the port raises it, as it does every ValueError after its
-    argument checks)."""
+    launcher refuses as the reference's does: it prints ``error:`` and the
+    message and exits 2."""
     from repro_torch.launch import stream as launcher
     tmp = tmp_path / "tmp"
     tmp.mkdir()
@@ -132,9 +140,9 @@ def test_stream_cli_smoke_fixture_is_a_later_slice(argv, what, tmp_path,
     args = ["--device", "cpu", "--streams", "2", "--capacity", "2",
             "--out", str(tmp_path / "st")] + argv
     if what is not None:
-        with pytest.raises(ValueError) as e:
-            launcher.main(args)
-        assert str(e.value).startswith(what)
+        assert launcher.main(args) == 2
+        err = capsys.readouterr().err.strip().splitlines()[-1]
+        assert err.startswith(f"error: {what}")
         assert list(tmp.iterdir()) == []
         return
     assert launcher.main(args) == 0
@@ -157,21 +165,27 @@ def test_stream_cli_smoke_fixture_is_a_later_slice(argv, what, tmp_path,
     assert sweep_art["data"]["eval_split"] == "train"   # 2 recordings
 
 
-def test_sweep_refuses_what_one_card_cannot_run(tmp_path):
-    """More than one device names queue 1 item 5; the dry-run cell sweep
-    queue 1 item 7; the one-device executor names its count, and run_sweep
-    refuses more devices before any compute."""
+def test_sweep_refuses_what_one_card_cannot_run(tmp_path, capsys):
+    """More cards than are visible raise before any compute (the launcher
+    prints ``error:`` and exits 2); the dry-run cell sweep names queue 1
+    item 7; the one-device executor names its count, and run_sweep
+    refuses more cards before any compute."""
     from repro_torch.launch import sweep as launcher
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        make_executor(2)
+    more = torch.cuda.device_count() + 2
+    with pytest.raises(ValueError, match="visible"):
+        make_executor(more, device="cuda")
+    assert launcher.main(["--grid", "fast", "--devices", str(more),
+                          "--device", "cuda", "--out", str(tmp_path)]) == 2
+    assert capsys.readouterr().err.startswith("error: sharding")
+    assert not list(tmp_path.iterdir())
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         launcher.main(["--dryrun-cells"])
     ex = make_executor(None)
     assert ex == SweepExecutor() == make_executor(1) and ex.devices == 1
     with pytest.raises(ValueError, match=">= 1"):
         make_executor(-1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        codesign.run_sweep(devices=2, device="cpu")
+    with pytest.raises(ValueError, match="visible"):
+        codesign.run_sweep(devices=more, device="cuda")
 
 
 def test_sweep_entry_points_need_a_gpu_unless_asked(monkeypatch):
