@@ -122,7 +122,19 @@ no ``ok`` line):
                 S + 1;
   9. lm parity — both architectures' smoke variants served on cuda and on
                 the CPU from the same weights and prompts (float32 compute):
-                the same generated tokens.
+                the same generated tokens;
+ 10. lm train — LM training at full published width through
+                ``train.loop.run`` (``phase_lm_train``): mamba2-780m (4
+                steps, batch 8 x 2048, K6 through ssd_trainable, 2 launches
+                a layer a step under remat="full") and internlm2-1.8b (3
+                steps, batch 4 x 2048, no kernel; donated update, peak
+                under LM_TRAIN_PEAK_GB), fresh seeded params on the card,
+                counters set to 0 before and read after each run: step ms,
+                tokens/s, peak memory, loss and gnorm per step; then both
+                smoke variants for 3 steps on cuda against the CPU, float32
+                and bf16 compute; ssd_trainable against ssd_chunked at a
+                full-width layer's scan; a restart from an async checkpoint
+                on the card; launch/train.py's exit codes.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -131,7 +143,8 @@ The last two lines of standard output are one JSON object per kernel
 the named ones of 5b-5e (``--only shard`` the shards), and prints no
 ``ok`` line; ``--only files``
 runs phases 1, 2 and 6d (with registry or adapt also named, 6d comes
-before phase 4).
+before phase 4); ``--only lm_train`` runs phases 1, 2 and 10 (first, when
+others are named too).
 
 ``python3 chip_smoke.py --measure-tree ROOT`` runs none of this: it times
 K1, the MAC-mode fold_chunk and K4 as the checkout at ROOT has them (see
@@ -141,6 +154,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -894,6 +908,311 @@ def phase_lm_parity(torch) -> None:
         print(f"[lm parity] {arch} smoke variant, 5 requests (prompts 20-168 "
               f"tokens) on 2 lanes: cuda and cpu generate the same "
               f"{sum(map(len, out['cuda']))} tokens")
+
+
+# LM training at full published width: (arch, batch, steps) at seq 2048;
+# mamba2 takes the loop's default donate=True like internlm2
+LM_TRAIN = (("mamba2-780m", 8, 4), ("internlm2-1.8b", 4, 3))
+LM_TRAIN_SEQ = 2048
+# a donated update keeps params, grads and both moments (4 x 8.0 GB for
+# internlm2-1.8b) plus one layer's working set; two copies of the state
+# alive at once would pass this
+LM_TRAIN_PEAK_GB = 60.0
+# card against the CPU, 3 smoke-variant steps from the same params and
+# batches. float32: loss relative, and params and moments at the train
+# step's tolerance (the reference's own grad-accumulation test). bf16:
+# loss and gnorm relative, and the whole-tree relative L2 distance of the
+# params' change over the 3 steps (the port against the reference, both
+# on the CPU, measured 1.1e-4, 1.3e-4 and 0.047-0.058; a dropped update
+# gives ~0.33)
+LM_TRAIN_F32 = dict(loss=1e-4, rtol=2e-4, atol=2e-5)
+LM_TRAIN_BF16 = dict(loss=1e-3, gnorm=1e-2, update=0.2)
+# ssd_trainable against ssd_chunked on the card: both differentiate
+# ssd_chunked, so the gradients are expected to be the same bits
+SSD_GRAD_RTOL = 1e-6
+
+
+def lm_train_run(torch, arch: str, batch: int, steps: int, counters,
+                 ckpt_dir: Path) -> dict:
+    """``train.loop.run`` at full published width: fresh seeded params on
+    the card, the port's token stream, no checkpoint at this size; every
+    counter set to 0 just before and read just after."""
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train.loop import LoopConfig, run
+    cfg = get_config(arch)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    loop = LoopConfig(total_steps=steps, log_every=1, ckpt_every=10 ** 9,
+                      ckpt_dir=str(ckpt_dir))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero(counters)
+    res = run(cfg, ShapeConfig("chip", "train", LM_TRAIN_SEQ, batch), loop,
+              log=lambda line: print(f"[lm train] {arch} {line}"),
+              device="cuda")
+    launches = read(counters)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if res.final_step != steps or res.restored_from is not None:
+        fail(f"{arch} train: ran to step {res.final_step} of {steps}, "
+             f"restored from {res.restored_from}")
+    if not all(map(math.isfinite, res.losses + res.gnorms)):
+        fail(f"{arch} train: loss {res.losses}, gnorm {res.gnorms}")
+    want = {k: 0 for k in launches}
+    if cfg.family == "ssm":        # remat="full": forward + recompute
+        want["ssd"] = 2 * cfg.n_layers * steps
+    if launches != want:
+        fail(f"{arch} train: launches {launches}, expected {want}")
+    step_s = sorted(res.step_s[1:])[(steps - 1) // 2]
+    out = {"step_ms": 1e3 * step_s, "tok_s": batch * LM_TRAIN_SEQ / step_s,
+           "peak_gb": peak, "launches": launches}
+    print(f"[lm train] {arch} on the card: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.phys_vocab}, {cfg.param_dtype} params, "
+          f"{cfg.compute_dtype} compute, remat {cfg.remat}, batch {batch} x "
+          f"{LM_TRAIN_SEQ}: step {out['step_ms']:.1f} ms (median of steps "
+          f"2-{steps}, host clock from drawing the batch to the loss; step 1 "
+          f"{1e3 * res.step_s[0]:.1f} ms), {out['tok_s']:.0f} tokens/s, peak "
+          f"{peak:.2f} GB allocated; loss {res.losses}, gnorm {res.gnorms}; "
+          f"K6 launches {launches['ssd']} = "
+          f"{launches['ssd'] / steps:g} a step")
+    if cfg.family == "dense" and peak > LM_TRAIN_PEAK_GB:
+        fail(f"{arch} train: peak {peak:.2f} GB > {LM_TRAIN_PEAK_GB} GB: the "
+             f"donated update is not in place")
+    del res
+    profile_train_step(torch, cfg, batch)
+    return out
+
+
+def profile_train_step(torch, cfg, batch: int) -> None:
+    """One train step at ``lm_train_run``'s shape under torch.profiler
+    (after one step to warm up), from fresh seeded params: the device's
+    busy share and time by kernel. Its launches are not the main path's
+    (the counters were read before)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import TokenStreamConfig, sample_batch
+    from repro_torch.models import lm
+    from repro_torch.train.steps import build_train_step
+    torch.cuda.empty_cache()
+    step, _, opt = build_train_step(
+        cfg, ShapeConfig("chip", "train", LM_TRAIN_SEQ, batch), device="cuda")
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg, "cuda")
+    state = opt.init(params)
+    data = {k: v.cuda() for k, v in sample_batch(TokenStreamConfig(
+        cfg.vocab_size, LM_TRAIN_SEQ, batch), 0).items()}
+    step(params, state, data)
+    profile_eval(torch, step, (params, state, data), top=8, tag="lm train",
+                 what=f"{cfg.name} one train step (batch {batch} x "
+                      f"{LM_TRAIN_SEQ})")
+    del params, state
+    torch.cuda.empty_cache()
+
+
+def lm_train_parity(torch, counters) -> None:
+    """Both smoke variants, 3 steps (lr 1e-3, batch 4 x 128) on the card
+    and on the CPU from the same params and token-stream batches, in
+    float32 and in bf16 compute, held to LM_TRAIN_F32 / LM_TRAIN_BF16; K6
+    must have launched in the card's mamba2 runs."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import TokenStreamConfig, sample_batch
+    from repro_torch.models import lm
+    from repro_torch.train.steps import build_train_step
+    from repro_torch.utils import tree_map, tree_paths
+    shape = ShapeConfig("parity", "train", 128, 4)
+    for arch in LM_ARCHS:
+        for compute in ("float32", "bfloat16"):
+            cfg = replace(smoke_variant(get_config(arch)),
+                          compute_dtype=compute)
+            p0 = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+            batches = [sample_batch(TokenStreamConfig(cfg.vocab_size, 128,
+                                                      4), i)
+                       for i in range(3)]
+            out = {}
+            for device in ("cuda", "cpu"):
+                step, _, opt = build_train_step(cfg, shape, lr=1e-3,
+                                                device=device)
+                p = tree_map(lambda t: t.to(device, copy=True), p0)
+                o = opt.init(p)
+                zero(counters)
+                ms = []
+                for b in batches:
+                    p, o, m = step(p, o, {k: v.to(device)
+                                          for k, v in b.items()})
+                    ms.append((float(m["loss"]), float(m["gnorm"])))
+                out[device] = (ms, tree_map(lambda t: t.cpu(),
+                                            {"params": p, "opt": o}),
+                               read(counters)["ssd"])
+            (mc, sc, kc), (mp, sp, _) = out["cuda"], out["cpu"]
+            if cfg.family == "ssm" and kc != 3 * cfg.n_layers:
+                fail(f"{arch} {compute} parity: K6 launched {kc} times on "
+                     f"the card, expected {3 * cfg.n_layers}")
+            loss_rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in
+                           zip(mc, mp))
+            gn_rel = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in
+                         zip(mc, mp))
+            if compute == "float32":
+                want = dict(tree_paths(sp))
+                worst = max(float(((a - want[k]).abs()
+                                   / (LM_TRAIN_F32["atol"] + LM_TRAIN_F32[
+                                       "rtol"] * want[k].abs())).max())
+                            for k, a in tree_paths(sc))
+                ok = loss_rel <= LM_TRAIN_F32["loss"] and worst <= 1.0
+                what = (f"params and moments at most {worst:.3g} of the "
+                        f"rtol {LM_TRAIN_F32['rtol']} / atol "
+                        f"{LM_TRAIN_F32['atol']} limit")
+            else:
+                num = den = 0.0
+                for (_, c), (_, q), (_, q0) in zip(tree_paths(sc["params"]),
+                                                   tree_paths(sp["params"]),
+                                                   tree_paths(p0)):
+                    num += float((c - q).square().sum())
+                    den += float((q - q0).square().sum())
+                upd = (num / den) ** 0.5
+                ok = (loss_rel <= LM_TRAIN_BF16["loss"]
+                      and gn_rel <= LM_TRAIN_BF16["gnorm"]
+                      and upd <= LM_TRAIN_BF16["update"])
+                what = f"params' change {upd:.3g} apart (relative L2)"
+            line = (f"{arch} smoke {compute}, 3 steps cuda vs cpu: loss "
+                    f"{loss_rel:.3g} apart (relative), gnorm {gn_rel:.3g}, "
+                    f"{what}; K6 launches on the card {kc}")
+            if not ok:
+                fail(f"[lm train parity] {line}")
+            print(f"[lm train parity] {line}")
+
+
+def ssd_trainable_check(torch) -> None:
+    """ssd_trainable at one mamba2-780m training layer's scan (x [8, 2048,
+    48, 64], g 1, n 128, bf16) against ssd_chunked on the card: y within
+    K6's limit (SSD_RTOL of the largest |y| plus one bf16 step), the five
+    gradients within SSD_GRAD_RTOL of each one's largest magnitude; both
+    routes forward + backward timed (CUDA events)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssd.ops import ssd_trainable
+    from repro_torch.nn.ssm import ssd_chunked
+    gen = torch.Generator().manual_seed(9)
+    b, s, h, p, g, n = 8, LM_TRAIN_SEQ, 48, 64, 1, 128
+    x = torch.randn((b, s, h, p), generator=gen).to("cuda", torch.bfloat16)
+    dt = F.softplus(torch.randn((b, s, h), generator=gen)).to("cuda")
+    A = -torch.exp(torch.randn(h, generator=gen) * 0.3).to("cuda")
+    B, C = (torch.randn((b, s, g, n), generator=gen).to("cuda",
+                                                          torch.bfloat16)
+            for _ in range(2))
+    gy = torch.randn((b, s, h, p), generator=gen).to("cuda", torch.bfloat16)
+    args = (x, dt, A, B, C)
+
+    def grads(fn):
+        live = [a.detach().requires_grad_() for a in args]
+        y = fn(*live)
+        return y.detach(), torch.autograd.grad(y, live, gy)
+
+    y, got = grads(ssd_trainable)
+    y_p, want = grads(lambda *a: ssd_chunked(*a, 128)[0])
+    dy = (y.float() - y_p.float()).abs()
+    top = y_p.float().abs().max().item()
+    share = (dy / (SSD_RTOL * top + 2.0 ** -8 * y_p.float().abs())).max(
+        ).item()
+    errs = {name: ((a.float() - w.float()).abs().max()
+                   / w.float().abs().max()).item()
+            for name, a, w in zip("x dt A B C".split(), got, want)}
+    if not share <= 1.0 or max(errs.values()) > SSD_GRAD_RTOL:
+        fail(f"ssd_trainable [{b}, {s}, {h}, {p}] bf16: y at {share:.3g} of "
+             f"its limit, gradients apart by {errs} (relative)")
+    ms = time_ms(lambda: grads(ssd_trainable), torch, reps=5)
+    plain_ms = time_ms(lambda: grads(lambda *a: ssd_chunked(*a, 128)[0]),
+                       torch, reps=5)
+    print(f"[lm train] ssd_trainable [{b}, {s}, {h}, {p}] g {g} n {n} bf16 "
+          f"vs ssd_chunked on the card: y at most {share:.3g} of K6's "
+          f"per-element limit, gradients apart by at most "
+          f"{max(errs.values()):.3g} of their largest (relative); forward + "
+          f"backward {ms:.3f} ms (plain route {plain_ms:.3f} ms; CUDA "
+          f"events)")
+
+
+def lm_train_restart(torch) -> None:
+    """The loop at mamba2-780m's smoke variant on the card: 6 steps in one
+    run, and one cut at step 3 then restarted from its async checkpoint,
+    with the same losses and the same final checkpoint, bit for bit."""
+    import shutil
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train.loop import LoopConfig, run
+    from repro_torch.utils import tree_paths
+    cfg = smoke_variant(get_config("mamba2-780m"))
+    shape = ShapeConfig("restart", "train", 128, 4)
+    root = ROOT / "build" / "chip_smoke" / "lm_restart"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def loop(name, total):
+        return run(cfg, shape, LoopConfig(total_steps=total, ckpt_every=3,
+                                          log_every=100, lr=1e-3,
+                                          ckpt_dir=str(root / name)),
+                   log=lambda _: None, device="cuda")
+    whole = loop("whole", 6)
+    cut = loop("cut", 3)
+    rest = loop("cut", 6)
+    a, _ = load_checkpoint(root / "whole", 6)
+    b, _ = load_checkpoint(root / "cut", 6)
+    same = all((x == y).all() for (_, x), (_, y) in zip(tree_paths(a),
+                                                        tree_paths(b)))
+    if rest.restored_from != 3 or cut.losses + rest.losses != whole.losses \
+            or not same:
+        fail(f"restart on the card: restored from {rest.restored_from}, "
+             f"losses {cut.losses} + {rest.losses} vs {whole.losses}, final "
+             f"checkpoints equal: {same}")
+    shutil.rmtree(root)
+    print(f"[lm train] restart on the card ({cfg.name} smoke, 6 steps; cut at "
+          f"3 and resumed from its async checkpoint): losses and final "
+          f"params bit-identical ({whole.losses[-1]:.6f})")
+
+
+def lm_train_launcher(tmp: Path) -> None:
+    """launch/train.py on the card: --smoke trains (exit 0);
+    --production-mesh prints error: and exits 2."""
+    import io
+    import shutil
+    from repro_torch.launch import train as launcher
+    shutil.rmtree(tmp, ignore_errors=True)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = launcher.main(["--smoke", "--steps", "4", "--batch", "2",
+                            "--seq", "128", "--ckpt-dir", str(tmp)])
+    if rc != 0 or "[train] done at step 4" not in out.getvalue():
+        fail(f"launch/train.py --smoke: exit {rc}, {out.getvalue()!r}")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = launcher.main(["--production-mesh", "--ckpt-dir", str(tmp)])
+    if rc != 2 or not err.getvalue().startswith("error:"):
+        fail(f"launch/train.py --production-mesh: exit {rc}, "
+             f"{err.getvalue()!r}")
+    shutil.rmtree(tmp)
+    print(f"[lm train] launch/train.py --smoke --steps 4 --batch 2 --seq 128: "
+          f"exit 0 ({out.getvalue().strip().splitlines()[-1]}); "
+          f"--production-mesh: exit 2, {err.getvalue().strip()[:60]}...")
+
+
+def phase_lm_train(torch, counters) -> dict:
+    """[lm train]: both architectures trained at full published width
+    through ``train.loop.run`` (``lm_train_run``), then card-against-CPU
+    parity at the smoke variants, ``ssd_trainable`` at a full-width
+    layer's scan, a restart on the card and the launcher. Returns the
+    launches of the full-width runs by kernel."""
+    tmp = ROOT / "build" / "chip_smoke"
+    runs = {arch: lm_train_run(torch, arch, batch, steps, counters,
+                               tmp / f"lm_train_{arch}")
+            for arch, batch, steps in LM_TRAIN}
+    lm_train_parity(torch, counters)
+    ssd_trainable_check(torch)
+    torch.cuda.empty_cache()
+    lm_train_restart(torch)
+    lm_train_launcher(tmp / "lm_train_launcher")
+    total = {}
+    for r in runs.values():
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 class Prerecorded:
@@ -2742,9 +3061,9 @@ def main() -> int:
         SRC = Path(sys.argv[2]).resolve() / "src"
     if sys.argv[1:2] == ["--only"]:
         ONLY = set(sys.argv[2].split(","))
-        if not ONLY <= {"registry", "adapt", "shard", "files"}:
-            fail(f"--only takes registry, adapt, shard and/or files, got "
-                 f"{sys.argv[2]}")
+        if not ONLY <= {"registry", "adapt", "shard", "files", "lm_train"}:
+            fail(f"--only takes registry, adapt, shard, files and/or "
+                 f"lm_train, got {sys.argv[2]}")
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              f"the root of a checkout")
@@ -2789,6 +3108,15 @@ def main() -> int:
     cfg = p2m_dvs.CONFIG
     all_counters = (pc.LAUNCHES, lif.LAUNCHES, sf.LAUNCHES, fa.LAUNCHES,
                     sd.LAUNCHES)
+    if "lm_train" in ONLY:
+        t0 = time.perf_counter()
+        phase_lm_train(torch, all_counters)
+        print(f"[lm train] phase {time.perf_counter() - t0:.1f} s")
+        ONLY.discard("lm_train")
+        if not ONLY:
+            print(f"[done] --only lm_train in "
+                  f"{time.perf_counter() - t_all:.1f} s (no ok line)")
+            return 0
     if "files" in ONLY:
         t0 = time.perf_counter()
         phase_files(torch, sf, pc, all_counters)
@@ -2967,6 +3295,12 @@ def main() -> int:
     # 9. both smoke variants on cuda and on the CPU
     phase_lm_parity(torch)
 
+    # 10. LM training at full width (K6 through ssd_trainable), parity,
+    # restart and the launcher
+    t0 = time.perf_counter()
+    lm_train = phase_lm_train(torch, counters)
+    print(f"[lm train] phase {time.perf_counter() - t0:.1f} s")
+
     names = {"fold": ("stream_fold", "src/repro/kernels/stream_fold/"
                                      "stream_fold.py:81"),
              "fold_mac": ("stream_fold_mac", "src/repro/kernels/stream_fold/"
@@ -3000,7 +3334,8 @@ def main() -> int:
             "name": row["name"], "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}",
             "replaces": f"src/repro/kernels/{replaces}",
-            "launches": lm_runs[arch]["launches"][row["name"]],
+            "launches": (lm_runs[arch]["launches"][row["name"]]
+                         + lm_train[row["name"]]),
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}})
     print(f"[done] {time.perf_counter() - t_all:.1f} s")

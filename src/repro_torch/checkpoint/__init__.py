@@ -1,0 +1,3 @@
+from repro_torch.checkpoint.store import (  # noqa: F401
+    CheckpointManager, latest_step, load_checkpoint, save_checkpoint,
+)

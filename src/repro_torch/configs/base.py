@@ -1,18 +1,17 @@
-"""LM architecture configuration (the port's copy of ``repro.configs.base``
-for the serving slice; ``ShapeConfig``/``SHAPES`` belong to the sharded
-step builders and are not ported yet).
+"""LM architecture and shape configuration (the port's copy of
+``repro.configs.base``).
 
 Logical fields carry the published numbers; the ``phys_*`` properties are
 the TP-padded shapes actually allocated (heads and vocab padded to a
 multiple of the model-axis size, Megatron/vLLM practice). The padding is
 kept exactly as in the reference: the parameter shapes, and so the weights
 carried across from it, depend on it. ``tp_multiple=1`` (smoke configs)
-keeps physical == logical.
+keeps physical == logical. ``remat`` is read by the training path
+(``models/lm._maybe_remat``).
 
-The reference's training, sharding and MoE-dispatch knobs (``remat``,
-``weight_sharding``, ``zero1``, ``moe_impl``, ``capacity_factor``) are
-left out: nothing the port runs yet reads them. They come back with the
-slices that do.
+The reference's sharding and MoE-dispatch knobs (``weight_sharding``,
+``zero1``, ``moe_impl``, ``capacity_factor``) are left out: nothing the
+port runs yet reads them. They come back with the slices that do.
 """
 from __future__ import annotations
 
@@ -62,6 +61,7 @@ class LMConfig:
     # --- numerics ---
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    remat: str = "full"            # full | dots | none
     attn_chunk: int = 1024         # online-softmax KV chunk
 
     # ---------------- derived physical shapes ----------------
@@ -102,6 +102,32 @@ class LMConfig:
         return self.encoder_layers > 0
 
 
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
+
+# Families with sub-quadratic context handling run long_500k; pure
+# full-attention archs skip it.
+_SUBQUADRATIC_FAMILIES = ("ssm", "hybrid")
+
+
+def shape_applicable(cfg: LMConfig, shape: str) -> tuple[bool, str]:
+    if shape == "long_500k" and cfg.family not in _SUBQUADRATIC_FAMILIES:
+        return False, "pure full-attention arch — long_500k skipped per spec"
+    return True, ""
+
+
 def smoke_variant(cfg: LMConfig) -> LMConfig:
     """Tiny same-family config for CPU smoke tests (no TP padding)."""
     kw = dict(
@@ -116,6 +142,6 @@ def smoke_variant(cfg: LMConfig) -> LMConfig:
         top_k=min(cfg.top_k, 2) if cfg.n_experts else 0,
         ssm_state=16 if cfg.ssm_state else 0,
         ssm_head_dim=16 if cfg.ssm_state else 64,
-        attn_chunk=64,
+        remat="none", attn_chunk=64,
     )
     return replace(cfg, **kw)

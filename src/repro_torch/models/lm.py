@@ -1,29 +1,37 @@
-"""Decoder LM, serving path (the port's ``repro.models.lm`` for the
-``dense`` and ``ssm`` families; the other families raise
-``NotImplementedError``):
+"""Decoder LM (the port's ``repro.models.lm`` for the ``dense`` and
+``ssm`` families; the other families raise ``NotImplementedError``):
 
   dense — internlm2 (GQA attention + GLU MLP)
   ssm   — mamba2 (attention-free Mamba-2 blocks)
 
 Params keep the reference's tree: ``embed``, ``final_norm`` and
 ``blocks`` with every leaf stacked ``[n_layers, ...]``; layers run in a
-Python loop over views of the stacks. Prefill's causal self-attention
-goes through ``kernels/flash_attention/ops.gqa_attention`` and the SSM
-prefill's scan through ``kernels/ssd/ops.ssd`` (the CUDA kernels on the
-card); decode stays on the plain ``attention_core`` and SSM step, as in
-the reference. Decode updates the cache in place.
+Python loop over views of the stacks. Training (``forward``,
+``loss_fn``) runs each block under ``cfg.remat`` (``_maybe_remat``), the
+attention through the plain ``attention_core`` and the SSD scan through
+``nn/ssm.ssm_block_apply`` (K6's forward on the card). Prefill's causal
+self-attention goes through ``kernels/flash_attention/ops.gqa_attention``
+and the SSM prefill's scan through ``kernels/ssd/ops.ssd`` (the CUDA
+kernels on the card); decode stays on the plain ``attention_core`` and
+SSM step, as in the reference. Decode updates the cache in place.
 
 API:
   init_params(gen, cfg, device)              → params
   params_from_jax(tree, cfg, device)         → params (reference weights)
+  forward(params, tokens, cfg)               → (logits, moe aux loss)
+  loss_fn(params, batch, cfg)                → (loss, {"ce", "lb"})
   init_cache(cfg, batch, max_len, device=)   → cache
   prefill(params, tokens, cfg, max_len=)     → (last_logits, cache)
   decode_step(params, token, pos, cache, cfg)→ (logits, cache)
 """
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.kernels.backend import resolve_device
@@ -134,6 +142,112 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
 
 def _layer(blocks: Params, i: int) -> Params:
     return _tree_map(lambda t: t[i], blocks)
+
+
+def _layers(blocks: Params, n: int) -> list[Params]:
+    """Every layer's params as views of the stacks, by one ``unbind`` a
+    leaf: its backward stacks the layers' gradients once, where indexing
+    layer by layer would add a zero-padded stack-sized gradient a layer."""
+    out = [{} for _ in range(n)]
+
+    def split(node, dsts):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                split(v, [d.setdefault(k, {}) for d in dsts])
+            else:
+                for d, t in zip(dsts, torch.unbind(v, 0)):
+                    d[k] = t
+    split(blocks, out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# training forward
+# ---------------------------------------------------------------------------
+
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the outputs of matmuls without batch dims, recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _maybe_remat(fn, cfg: LMConfig):
+    """``cfg.remat``: "none" keeps every activation; "full" keeps a
+    block's inputs and recomputes the rest in the backward pass; "dots"
+    also keeps the outputs of its non-batched matmuls. The gradients are
+    the same bits in all three."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        ctx = partial(create_selective_checkpoint_contexts, _dots_policy)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=ctx)
+    if cfg.remat == "full":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    raise ValueError(f"remat {cfg.remat!r} (expected none, dots or full)")
+
+
+def _dense_block_fwd(h: torch.Tensor, bp: Params, cfg: LMConfig,
+                     positions: torch.Tensor | None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (h, moe aux loss); the aux loss is 0 (no MoE is ported)."""
+    h = h + L.self_attention(bp["attn"], L.rmsnorm(h, bp["ln1"],
+                                                   cfg.norm_eps),
+                             cfg, causal=True, positions=positions)
+    y = L.mlp_apply(bp["mlp"], L.rmsnorm(h, bp["ln2"], cfg.norm_eps), cfg)
+    return h + y, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def _ssm_block_fwd(h: torch.Tensor, bp: Params, cfg: LMConfig
+                   ) -> torch.Tensor:
+    return h + ssm_mod.ssm_block_apply(
+        bp["ssm"], L.rmsnorm(h, bp["ln"], cfg.norm_eps), cfg)
+
+
+def backbone(params: Params, h: torch.Tensor, cfg: LMConfig,
+             positions: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Run the layer stack. Returns (hidden, total moe aux loss)."""
+    layers = _layers(params["blocks"], cfg.n_layers)
+    lb = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.family == "dense":
+        def body(h, lb, bp):
+            h, lb_i = _dense_block_fwd(h, bp, cfg, positions)
+            return h, lb + lb_i
+        body = _maybe_remat(body, cfg)
+        for bp in layers:
+            h, lb = body(h, lb, bp)
+        return h, lb
+    body = _maybe_remat(partial(_ssm_block_fwd, cfg=cfg), cfg)
+    for bp in layers:
+        h = body(h, bp)
+    return h, lb
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: LMConfig
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B, S] → (logits [B, S, Vp], moe aux loss)."""
+    _check_family(cfg)
+    h = L.embed_apply(params["embed"], tokens, cfg)
+    h, lb = backbone(params, h, cfg)
+    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    return L.unembed_apply(params["embed"], h, cfg), lb
+
+
+def loss_fn(params: Params, batch: dict, cfg: LMConfig,
+            lb_coef: float = 0.01) -> tuple[torch.Tensor, dict]:
+    """Training loss through the chunked CE (no [B, S, V] logits kept).
+    Returns (loss, {"ce", "lb"})."""
+    _check_family(cfg)
+    h = L.embed_apply(params["embed"], batch["tokens"], cfg)
+    h, lb = backbone(params, h, cfg)
+    h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    ce = L.chunked_cross_entropy(params["embed"], h, batch["labels"], cfg)
+    return ce + lb_coef * lb, {"ce": ce, "lb": lb}
 
 
 # ---------------------------------------------------------------------------

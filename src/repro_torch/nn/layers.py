@@ -1,6 +1,7 @@
-"""Transformer building blocks (the port's ``repro.nn.layers`` for the
-serving slice): RMSNorm, RoPE, GQA attention as an online softmax over KV
-chunks, GLU MLPs, embeddings.
+"""Transformer building blocks (the port's ``repro.nn.layers``): RMSNorm,
+RoPE, GQA attention as an online softmax over KV chunks (differentiable,
+the training path's attention), GLU MLPs, embeddings and the chunked
+cross-entropy.
 
 Params are plain dicts of tensors; every apply casts to the config's
 compute dtype and keeps softmax and norm statistics in float32. Init
@@ -15,6 +16,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 
@@ -190,6 +192,18 @@ def attn_out(p: Params, o: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     return o.reshape(B, S, -1) @ p["wo"].to(dt)
 
 
+def self_attention(p: Params, x: torch.Tensor, cfg: LMConfig, *,
+                   causal: bool = True,
+                   positions: torch.Tensor | None = None) -> torch.Tensor:
+    """Training-path self-attention through the plain ``attention_core``
+    (the reference trains through it too; K5 is forward-only)."""
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    q, k, v = project_qkv(p, x, x, cfg, positions, positions)
+    o = attention_core(q, k, v, causal=causal, chunk=cfg.attn_chunk)
+    return attn_out(p, o, cfg)
+
+
 # --- decode-path attention over a cache --------------------------------
 
 def decode_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
@@ -271,3 +285,43 @@ def unembed_apply(p: Params, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     if cfg.phys_vocab != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = -math.inf
     return logits
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                          ) -> torch.Tensor:
+    """logits [..., V] (may hold the −inf pad mask), labels [...] → the
+    per-position loss, in float32. −inf becomes −1e30, as the reference
+    has it, so a padded entry adds exp(−1e30 − max) = 0 to the sum and
+    its gradient is 0, not NaN."""
+    lf = logits.float()
+    lf = torch.where(torch.isinf(lf), -1e30, lf)
+    lse = torch.logsumexp(lf, -1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return lse - gold
+
+
+def chunked_cross_entropy(p_embed: Params, h: torch.Tensor,
+                          labels: torch.Tensor, cfg: LMConfig,
+                          seq_chunk: int = 256) -> torch.Tensor:
+    """Mean CE without keeping [B, S, V] logits: each chunk of
+    ``seq_chunk`` positions computes its logits, reduces them to
+    (lse − gold) summed, and drops them. Each chunk runs under
+    ``torch.utils.checkpoint`` (recomputed in the backward pass), so one
+    chunk's logits is the most that is alive at a time, as in the
+    reference's scan."""
+    B, S, _ = h.shape
+    seq_chunk = min(seq_chunk, S)
+    if S % seq_chunk:
+        raise ValueError(f"sequence {S} is not a multiple of the CE chunk "
+                         f"{seq_chunk}")
+
+    def chunk_sum(hb, lb):
+        return softmax_cross_entropy(unembed_apply(p_embed, hb, cfg),
+                                     lb).sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, S, seq_chunk):
+        tot = tot + checkpoint(chunk_sum, h[:, i:i + seq_chunk],
+                               labels[:, i:i + seq_chunk],
+                               use_reentrant=False)
+    return tot / (B * S)

@@ -1,8 +1,10 @@
-"""Mamba-2 (SSD — state-space duality, arXiv:2405.21060) block, serving
-path (the port's ``repro.nn.ssm``; ``ssd_chunked`` and ``ssm_block_apply``
-belong to the training slice and are not ported yet).
+"""Mamba-2 (SSD — state-space duality, arXiv:2405.21060) block (the
+port's ``repro.nn.ssm``).
 
-Prefill runs the SSD scan through ``kernels/ssd/ops.ssd`` (the CUDA
+Training (``ssm_block_apply``) runs the differentiable chunked SSD scan:
+``ssd_chunked`` itself on the CPU, as the reference does, and on the card
+``kernels/ssd/ops.ssd_trainable`` (the CUDA kernel forward, the gradient
+of ``ssd_chunked``). Prefill runs the forward-only ``ops.ssd`` (the CUDA
 kernel on the card, the sequential recurrence on the CPU) and returns the
 final state and the conv tails; decode carries (conv_state, ssm_state) and
 costs O(1) per token. Projections stay split (wz / wx / wbc / wdt), as in
@@ -16,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig
-from repro_torch.kernels.ssd.ops import ssd
+from repro_torch.kernels.ssd.ops import ssd, ssd_trainable
 from repro_torch.nn.layers import _device, _full, _normal, cdt, pdt, rmsnorm
 
 Params = dict
@@ -77,6 +79,126 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     return out + b
 
 
+def _scan(x: torch.Tensor, reverse: bool, block: int = 16) -> torch.Tensor:
+    """Inclusive sums along the last axis (suffix sums if ``reverse``) as
+    a two-level scan: each block of ``block`` summed left to right, the
+    block totals scanned the same way, each block's carry added last."""
+    n = x.shape[-1]
+    if n <= block:
+        acc = x.clone()
+        if reverse:        # acc[i] = ((x_i + x_i+1) + x_i+2) + ...
+            for d in range(1, n):
+                acc[..., :n - d] = acc[..., :n - d] + x[..., d:]
+            return acc
+        for k in range(1, n):
+            acc[..., k] = acc[..., k - 1] + x[..., k]
+        return acc
+    inner = _scan(F.pad(x, (0, -n % block)).reshape(x.shape[:-1]
+                                                     + (-1, block)),
+                  reverse, block)
+    tot = _scan(inner[..., 0 if reverse else -1], reverse, block)
+    zero = torch.zeros_like(tot[..., :1])
+    carry = (torch.cat([tot[..., 1:], zero], -1) if reverse
+             else torch.cat([zero, tot[..., :-1]], -1))
+    return (inner + carry[..., None]).flatten(-2)[..., :n]
+
+
+class _Cumsum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _scan(x, reverse=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scan(g, reverse=True)
+
+
+def _cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jnp.cumsum`` along ``dim`` with the association XLA's CPU backend
+    gives it, forward and transposed (blocks of 16, ``_scan``), so the
+    decay sums, which ``exp`` turns into relative errors of the same size,
+    round as the reference's do, on either device; ``torch.cumsum`` rounds
+    otherwise (in double on the CPU)."""
+    return _Cumsum.apply(x.movedim(dim, -1).contiguous()).movedim(-1, dim)
+
+
+def _segsum(a: torch.Tensor) -> torch.Tensor:
+    """a: [..., L] log-decay increments → [..., L, L] lower-tri cumulative
+    sums S[i,j] = sum_{k=j+1..i} a_k (i ≥ j), -inf above the diagonal."""
+    L = a.shape[-1]
+    cs = _cumsum(a, -1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=a.device))
+    return diff.masked_fill(~mask, -math.inf)
+
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor, chunk: int,
+                initial_state: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """SSD scan, differentiable, in float32: the quadratic form inside
+    each chunk plus a linear recurrence over the chunk states.
+
+    x [b,s,h,p], dt [b,s,h] (post-softplus), A [h] (negative), B, C
+    [b,s,g,n] with h % g == 0; s a multiple of ``min(chunk, s)``. Returns
+    (y [b,s,h,p] of x's type, state [b,h,p,n] float32)."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    hr = h // g
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"ssd_chunked: sequence {s} is not a multiple of "
+                         f"the chunk {chunk}")
+    nc = s // chunk
+
+    xc = x.reshape(b, nc, chunk, h, p).float()
+    dtc = dt.reshape(b, nc, chunk, h).float()
+    Bc = B.reshape(b, nc, chunk, g, n).float()
+    Cc = C.reshape(b, nc, chunk, g, n).float()
+
+    a = dtc * A                                              # [b,nc,L,h] ≤ 0
+    a_cs = _cumsum(a, 2)                                     # [b,nc,L,h]
+
+    # ---- intra-chunk (quadratic within chunk) --------------------------
+    seg = _segsum(a.movedim(2, -1))                          # [b,nc,h,L,L]
+    decay = torch.exp(seg)
+    scores = torch.einsum("bclgn,bcmgn->bcglm", Cc, Bc)      # [b,nc,g,L,L]
+    scores = scores.repeat_interleave(hr, 2)                 # g → h
+    scores = scores * decay * dtc.movedim(2, -1)[..., None, :]
+    y_intra = torch.einsum("bchlm,bcmhp->bclhp", scores, xc)
+
+    # ---- chunk states ----------------------------------------------------
+    decay_end = torch.exp(a_cs[:, :, -1:, :] - a_cs)         # [b,nc,L,h]
+    Bh = Bc.repeat_interleave(hr, 3)                         # [b,nc,L,h,n]
+    S_chunk = torch.einsum("bclhn,bclh,bclhp->bchpn",
+                           Bh, dtc * decay_end, xc)          # [b,nc,h,p,n]
+
+    # ---- inter-chunk recurrence -----------------------------------------
+    chunk_decay = torch.exp(a_cs[:, :, -1, :])               # [b,nc,h]
+    state = (initial_state.float() if initial_state is not None
+             else x.new_zeros((b, h, p, n), dtype=torch.float32))
+    prev_states = []
+    for c in range(nc):
+        prev_states.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + S_chunk[:, c]
+    prev = torch.stack(prev_states, 1)                       # [b,nc,h,p,n]
+
+    Ch = Cc.repeat_interleave(hr, 3)                         # [b,nc,L,h,n]
+    y_inter = torch.einsum("bclhn,bclh,bchpn->bclhp",
+                           Ch, torch.exp(a_cs), prev)
+    y = (y_intra + y_inter).reshape(b, s, h, p)
+    return y.to(x.dtype), state
+
+
+def _trainable_scan(x, dt, A, B, C, chunk: int):
+    """The training block's scan: ``ssd_chunked`` on the CPU (the
+    reference's ``_ssm_block_full``), ``ssd_trainable`` on CUDA tensors;
+    the state is not returned on the card."""
+    if x.device.type == "cpu":
+        return ssd_chunked(x, dt, A, B, C, chunk)
+    return ssd_trainable(x, dt, A, B, C), None
+
+
 def _project(p: Params, x: torch.Tensor, cfg: LMConfig):
     """Shared projection path. x [B,S,D] → (z, x_raw, bc_raw, dt_raw)."""
     dt_ = cdt(cfg)
@@ -85,11 +207,20 @@ def _project(p: Params, x: torch.Tensor, cfg: LMConfig):
             x @ p["wbc"].to(dt_), x @ p["wdt"].to(dt_))
 
 
+def ssm_block_apply(p: Params, x: torch.Tensor, cfg: LMConfig,
+                    chunk: int = 128) -> torch.Tensor:
+    """Full Mamba-2 block (training). x: [B, S, D] → [B, S, D]."""
+    y, _, _ = _ssm_block_full(p, x, cfg, chunk, scan=_trainable_scan)
+    return y
+
+
 def _ssm_block_full(p: Params, x: torch.Tensor, cfg: LMConfig,
-                    chunk: int = 128):
+                    chunk: int = 128, scan=ssd):
     """x [B, S, D] → (out [B, S, D], final ssm state [B, nh, hp, N] f32,
     conv tails {"x": [B, K-1, di], "bc": [B, K-1, 2gn]}); prefill needs all
-    three."""
+    three. ``scan(x, dt, A, B, C, chunk)`` → (y, state) is the SSD scan:
+    the forward-only ``ops.ssd`` for prefill, ``_trainable_scan`` for
+    training."""
     d = ssm_dims(cfg)
     dt_ = cdt(cfg)
     B_, S_, _ = x.shape
@@ -103,7 +234,7 @@ def _ssm_block_full(p: Params, x: torch.Tensor, cfg: LMConfig,
     xh = xs.reshape(B_, S_, d["nh"], d["hp"])
     Bm = bcs[..., :d["gn"]].reshape(B_, S_, cfg.ssm_groups, cfg.ssm_state)
     Cm = bcs[..., d["gn"]:].reshape(B_, S_, cfg.ssm_groups, cfg.ssm_state)
-    y, state = ssd(xh, dt, A, Bm, Cm, chunk=chunk)
+    y, state = scan(xh, dt, A, Bm, Cm, chunk)
     y = y + p["D_skip"].to(y.dtype)[:, None] * xh
     y = y.reshape(B_, S_, d["di"])
     y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)

@@ -7,6 +7,11 @@ dict trees of tensors, as the reference is over pytrees:
     updates, state = opt.update(grads, state, params)
     params = apply_updates(params, updates)
 
+``opt.update_(grads, state, params)`` (AdamW) does both in place, leaf by
+leaf, with the same operations, so its results are the same bits: the
+LM train step's ``donate=True``, which keeps one copy of the params and
+moments alive instead of two.
+
 ``torch.optim`` is not used: its AdamW folds the weight decay into the
 parameter before the step (``p ← p·(1 − lr·wd)``) where the reference
 adds ``wd·p`` to the update, and it keeps its state inside the
@@ -22,7 +27,8 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.utils import tree_leaves, tree_map, tree_map_with_path
+from repro_torch.utils import (tree_leaves, tree_map, tree_map_with_path,
+                               tree_paths)
 
 PyTree = Any
 Schedule = Callable[[torch.Tensor], torch.Tensor]
@@ -32,6 +38,7 @@ Schedule = Callable[[torch.Tensor], torch.Tensor]
 class Optimizer:
     init: Callable[[PyTree], PyTree]
     update: Callable[[PyTree, PyTree, PyTree], tuple[PyTree, PyTree]]
+    update_: Callable[[PyTree, PyTree, PyTree], None] | None = None
 
 
 def constant_schedule(lr: float) -> Schedule:
@@ -58,15 +65,28 @@ def warmup_cosine(lr: float, warmup_steps: int, total_steps: int,
     return fn
 
 
+def _clip_scale(grads: PyTree, max_norm: float
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                           for g in tree_leaves(grads)))
+    return torch.clamp(max_norm / (gnorm + 1e-9), max=1.0), gnorm
+
+
 def clip_by_global_norm(grads: PyTree, max_norm: float
                         ) -> tuple[PyTree, torch.Tensor]:
     """Scale every leaf by ``min(1, max_norm / (‖g‖ + 1e-9))``; returns the
     scaled tree and the global norm ‖g‖ (float32, leaves summed in the
     reference's leaf order)."""
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                           for g in tree_leaves(grads)))
-    scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
+    scale, gnorm = _clip_scale(grads, max_norm)
     return tree_map(lambda g: (g * scale).to(g.dtype), grads), gnorm
+
+
+def clip_by_global_norm_(grads: PyTree, max_norm: float) -> torch.Tensor:
+    """:func:`clip_by_global_norm` in place (the same bits); returns ‖g‖."""
+    scale, gnorm = _clip_scale(grads, max_norm)
+    for g in tree_leaves(grads):
+        g.copy_((g * scale).to(g.dtype))
+    return gnorm
 
 
 def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
@@ -92,26 +112,42 @@ def adamw(lr: float | Schedule = 1e-3, b1: float = 0.9, b2: float = 0.999,
         return {"mu": zeros, "nu": tree_map(torch.zeros_like, zeros),
                 "step": _step0(params)}
 
-    def update(grads, state, params):
+    def scalars(state):
         step = state["step"] + 1
-        lr_t = sched(step)
-        bc1 = 1 - b1 ** step.to(torch.float32)
-        bc2 = 1 - b2 ** step.to(torch.float32)
-        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(),
-                      state["mu"], grads)
-        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.float()),
-                      state["nu"], grads)
+        return (step, sched(step), 1 - b1 ** step.to(torch.float32),
+                1 - b2 ** step.to(torch.float32))
 
-        def upd(path, p):
-            u = (_get(mu, path) / bc1) / (torch.sqrt(_get(nu, path) / bc2)
-                                          + eps)
-            wd = weight_decay if (mask_fn is None or mask_fn(path)) else 0.0
-            return (-(lr_t * (u + wd * p.float()))).to(p.dtype)
+    def new_mu(m, g):
+        return b1 * m + (1 - b1) * g.float()
 
-        return (tree_map_with_path(upd, params),
+    def new_nu(v, g):
+        return b2 * v + (1 - b2) * torch.square(g.float())
+
+    def delta(path, m, v, p, lr_t, bc1, bc2):
+        u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+        wd = weight_decay if (mask_fn is None or mask_fn(path)) else 0.0
+        return (-(lr_t * (u + wd * p.float()))).to(p.dtype)
+
+    def update(grads, state, params):
+        step, lr_t, bc1, bc2 = scalars(state)
+        mu = tree_map(new_mu, state["mu"], grads)
+        nu = tree_map(new_nu, state["nu"], grads)
+        return (tree_map_with_path(
+            lambda path, p: delta(path, _get(mu, path), _get(nu, path), p,
+                                  lr_t, bc1, bc2), params),
                 {"mu": mu, "nu": nu, "step": step})
 
-    return Optimizer(init=init, update=update)
+    def update_(grads, state, params):
+        step, lr_t, bc1, bc2 = scalars(state)
+        for path, p in tree_paths(params):
+            g, m, v = (_get(t, path) for t in (grads, state["mu"],
+                                                state["nu"]))
+            m.copy_(new_mu(m, g))
+            v.copy_(new_nu(v, g))
+            p.copy_(p + delta(path, m, v, p, lr_t, bc1, bc2))
+        state["step"].copy_(step)
+
+    return Optimizer(init=init, update=update, update_=update_)
 
 
 def _get(tree: PyTree, path: str):

@@ -10,7 +10,7 @@ from repro_torch.configs.base import LMConfig
 
 
 def serve_config(cfg: LMConfig) -> LMConfig:
-    """Serving numerics: bf16 params. The reference also turns remat off
-    and makes MoE dropless; the port has neither training nor MoE yet, and
-    its config carries neither knob."""
-    return replace(cfg, param_dtype="bfloat16")
+    """Serving numerics: bf16 params, no remat. The reference also makes
+    MoE dropless; the port has no MoE yet, and its config carries no
+    capacity factor."""
+    return replace(cfg, param_dtype="bfloat16", remat="none")

@@ -42,6 +42,7 @@ from repro_torch.stream.engine import StreamEngine
 from repro_torch.stream.registry import Registry, compat_key
 from stream_replay import (assert_logits_close, by_stream, jax_deployment,
                            replay_factory)
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 HW, N_CLASSES, SLOT_US, DURATION = 24, 11, 2500, 1000.0

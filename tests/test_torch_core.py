@@ -14,6 +14,7 @@ from repro.core import leakage as j_leak
 from repro.core import p2m_layer as j_p2m
 from repro.core import snn as j_snn
 from repro_torch.core import analog, leakage, p2m_layer, snn
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 

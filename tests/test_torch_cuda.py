@@ -1,6 +1,8 @@
 """PyTorch port: the CUDA kernels (streaming fold, P²M conv, LIF, flash
-attention, SSD) against their plain versions, on the card. Imports no JAX, so it runs on the machine with the
-card: ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
+attention, SSD) against their plain versions, on the card, and the LM
+training path around K6 (``ssd_trainable``, remat, the donated step).
+Imports no JAX, so it runs on the machine with the card:
+``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 Without a GPU every test here skips."""
 from __future__ import annotations
 
@@ -645,6 +647,116 @@ def test_cuda_ssd_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="bad shapes"):
         ssd_mod.ssd_cuda(x, dt, A[:1], B, C)
     assert ssd_mod.LAUNCHES["ssd"] == n
+
+
+# ---------------------------------------------------------------------------
+# LM training: ssd_trainable, remat and the donated step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,p,g,n", [(2, 256, 4, 64, 1, 128),
+                                         (1, 128, 6, 16, 2, 16)])
+def test_cuda_ssd_trainable_vs_the_plain_route(cuda_device, dtype, b, s, h,
+                                               p, g, n):
+    """ssd_trainable on the card: y through K6 (one launch, within K6's
+    limit of ssd_chunked's y), and the gradients of all five inputs within
+    1e-6 of each one's largest magnitude of those of ssd_chunked itself
+    on the same inputs and cotangent (both differentiate ssd_chunked, so
+    they are expected to be the same bits)."""
+    from repro_torch.kernels.ssd import ssd as ssd_mod
+    from repro_torch.kernels.ssd.ops import ssd_trainable
+    from repro_torch.nn.ssm import ssd_chunked
+    args = _ssd_args(s + h, b, s, h, p, g, n, dtype, cuda_device)
+    gy = torch.randn(args[0].shape, generator=torch.Generator(
+        device=cuda_device).manual_seed(1), device=cuda_device).to(dtype)
+    live = [a.clone().requires_grad_() for a in args]
+    k = ssd_mod.LAUNCHES["ssd"]
+    y = ssd_trainable(*live)
+    assert ssd_mod.LAUNCHES["ssd"] == k + 1 and y.dtype == dtype
+    got = torch.autograd.grad(y, live, gy)
+    plain = [a.clone().requires_grad_() for a in args]
+    y_p, _ = ssd_chunked(*plain, 128)
+    want = torch.autograd.grad(y_p, plain, gy)
+    assert ssd_mod.LAUNCHES["ssd"] == k + 1
+    rtol = 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(y.float(), y_p.float(), rtol=rtol,
+                               atol=1e-3 * float(y_p.float().abs().max()))
+    for name, a, w in zip("x dt A B C".split(), got, want):
+        assert a.dtype == w.dtype, name
+        torch.testing.assert_close(a.float(), w.float(), rtol=0,
+                                   atol=1e-6 * float(w.float().abs().max()),
+                                   msg=name)
+
+
+def _lm_train_case(arch, compute="float32", **kw):
+    from dataclasses import replace
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.tokens import TokenStreamConfig, sample_batch
+    from repro_torch.models import lm
+    cfg = replace(smoke_variant(get_config(arch)), compute_dtype=compute,
+                  **kw)
+    shape = ShapeConfig("t", "train", 128, 2)
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    batches = [{k: v.cuda() for k, v in sample_batch(TokenStreamConfig(
+        cfg.vocab_size, 128, 2), i).items()} for i in range(2)]
+    return cfg, shape, params, batches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-780m"])
+def test_cuda_remat_gives_the_same_bits(cuda_device, arch):
+    """On the card (mamba2 through K6), remat "none", "full" and "dots":
+    the same loss and gradients, bit for bit. K6 launches once per block
+    under "none", twice under "full" and "dots" (the backward pass
+    recomputes the block's forward through the SSD scan)."""
+    from repro_torch.kernels.ssd import ssd as ssd_mod
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_map, tree_paths
+    out, launches = {}, {}
+    for remat in ("none", "full", "dots"):
+        cfg, _, params, batches = _lm_train_case(arch, remat=remat)
+        live = tree_map(lambda t: t.cuda().requires_grad_(), params)
+        paths, leaves = zip(*tree_paths(live))
+        k = ssd_mod.LAUNCHES["ssd"]
+        loss, _ = lm.loss_fn(live, batches[0], cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        launches[remat] = ssd_mod.LAUNCHES["ssd"] - k
+        out[remat] = (loss, dict(zip(paths, grads)))
+    if arch == "mamba2-780m":
+        assert launches == {"none": 2, "full": 4, "dots": 4}, launches
+    for remat in ("full", "dots"):
+        assert torch.equal(out[remat][0], out["none"][0]), remat
+        for path, g in out["none"][1].items():
+            assert torch.equal(out[remat][1][path], g), (remat, path)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-780m"])
+def test_cuda_donated_step_gives_the_same_bits(cuda_device, arch):
+    """Two bf16-compute train steps on the card with donate=True (the
+    update written into the given tensors) and donate=False: the same
+    losses, gradient norms, params and moments, bit for bit."""
+    from repro_torch.train.steps import build_train_step
+    from repro_torch.utils import tree_map, tree_paths
+    cfg, shape, params, batches = _lm_train_case(arch, "bfloat16")
+    out = {}
+    for donate in (False, True):
+        step, _, opt = build_train_step(cfg, shape, lr=1e-3, donate=donate,
+                                        device=cuda_device)
+        p = tree_map(lambda t: t.cuda(), params)
+        o = opt.init(p)
+        ms = []
+        for b in batches:
+            p, o, m = step(p, o, b)
+            ms.append((m["loss"], m["gnorm"]))
+        out[donate] = (ms, {"params": p, "opt": o})
+    for (l1, g1), (l2, g2) in zip(out[False][0], out[True][0]):
+        assert torch.equal(l1, l2) and torch.equal(g1, g2)
+    for (path, a), (_, b) in zip(tree_paths(out[False][1]),
+                                 tree_paths(out[True][1])):
+        assert torch.equal(a, b), path
 
 
 # ---------------------------------------------------------------------------

@@ -50,6 +50,7 @@ from repro_torch.stream import deploy
 from repro_torch.stream.engine import StreamEngine
 
 from stream_replay import awake
+from torch_threads import one_torch_thread  # noqa: F401
 
 HW = 16
 T_GRID = (100.0, 1000.0)

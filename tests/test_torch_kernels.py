@@ -19,6 +19,7 @@ from repro.kernels.stream_fold import ops as jax_ops
 from repro.kernels.stream_fold import ref as jax_ref
 from repro_torch.kernels.p2m_conv.ops import _extract_patches
 from repro_torch.kernels.stream_fold import ops, ref, stream_fold as sf
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-6
 

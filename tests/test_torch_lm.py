@@ -32,6 +32,7 @@ from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.kernels.ssd.ref import ssd_ref
 from repro_torch.models import lm
 from repro_torch.nn import layers, ssm
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ["internlm2-1.8b", "mamba2-780m"]
 ATOL = 2e-4            # prefill/decode vs the reference (tests/test_models.py)
@@ -79,10 +80,9 @@ def _rel_err(got, want) -> float:
 @pytest.mark.parametrize("arch", ARCHS)
 def test_configs_match_the_reference(arch):
     """Logical and TP-padded shapes equal the reference's, full and smoke;
-    the port's config has every field of the reference's but the training,
-    sharding and MoE-dispatch knobs that nothing it runs reads."""
-    unread = {"remat", "weight_sharding", "zero1", "moe_impl",
-              "capacity_factor"}
+    the port's config has every field of the reference's but the sharding
+    and MoE-dispatch knobs that nothing it runs reads."""
+    unread = {"weight_sharding", "zero1", "moe_impl", "capacity_factor"}
     port_fields = {f.name for f in dataclasses.fields(get_config(arch))}
     ref_fields = {f.name for f in dataclasses.fields(j_get_config(arch))}
     assert port_fields == ref_fields - unread

@@ -39,6 +39,7 @@ from repro_torch.kernels.lif.ref import lif_ref
 from repro_torch.kernels.p2m_conv import ops as conv_ops
 from repro_torch.kernels.p2m_conv import p2m_conv as conv_mod
 from repro_torch.stream.deploy import params_from_jax
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL, BAND, LOGIT_ATOL = 1e-5, 1e-6, 1e-5, 1e-4
 CIRCUITS = ("a", "b", "c", "ideal")

@@ -29,6 +29,7 @@ from repro_torch.stream.registry import (Registry, compat_digest, compat_key,
 from repro_torch.stream.shard import LaneExecutor, make_lane_executor
 from stream_replay import (assert_logits_close, by_stream, jax_deployment,
                            replay_factory)
+from torch_threads import one_torch_thread  # noqa: F401
 
 HW, N_CLASSES, SLOT_US = 24, 11, 2500
 CIRCUITS = {"a": dict(circuit=j_deploy.CircuitConfig.BASIC),

@@ -44,6 +44,7 @@ from repro_torch.stream.engine import StreamEngine
 from repro_torch.stream.registry import Registry
 from repro_torch.stream.shard import LANE_AXIS, LaneExecutor, make_lane_executor
 from repro_torch.utils import tree_paths
+from torch_threads import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 N_CARDS = torch.cuda.device_count()

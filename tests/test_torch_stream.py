@@ -31,6 +31,7 @@ from repro_torch.data.binning import frames_to_events
 from repro_torch.data.sources import rechunk_events
 from repro_torch.stream import accumulator, deploy
 from repro_torch.stream.engine import StreamEngine
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 X_ATOL, LOGIT_ATOL, NEAR, GAP = 1e-5, 1e-4, 1e-5, 1e-3

@@ -70,6 +70,7 @@ from repro_torch.stream import deploy
 from repro_torch.utils import tree_paths
 
 import sweep_parity as sp
+from torch_threads import one_torch_thread  # noqa: F401
 
 RET_RTOL = {"frozen": 1e-6, "unfrozen": 1e-5}
 ENERGY_RTOL = 1e-5

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.core import codesign, sweep
 from repro_torch.core.sweep_exec import SweepExecutor, make_executor
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 ENV = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",

@@ -54,6 +54,7 @@ from repro_torch.kernels.stream_fold import stream_fold as fold_mod
 from repro_torch.optim import optimizers as opt
 from repro_torch.stream.deploy import opt_state_from_jax, params_from_jax
 from repro_torch.utils import tree_map, tree_paths
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 LR = 1e-3
