@@ -35,13 +35,16 @@ no ``ok`` line):
                 flash-attention kernel through gqa_attention at the
                 internlm2-1.8b prefill (q/k/v [1, 2048, 16, 128], causal;
                 bfloat16 held per element, see ``fa_limit``), without the
-                mask and at d 64 and 32 (bf16 runs both its kernels, see
-                ``FA_CASES``), and the SSD kernel at the mamba2-780m
-                prefill (x [1, 2048, 48, 64], n 128, g 1, chunk 128, with
-                one call's device time split over its three passes), each
-                in float32 and bfloat16 and on padded shapes (K5: Sq 100,
-                G 2, with B 1 and B 2, d 128, 32 and 16; K6: s 200 with
-                b 1 g 1 and b 2 g 2);
+                mask, at d 64 and 32, at zamba2-7b's shared block (q [1,
+                2048, 32, 112]) and the gemma-7b prefill (q [1, 2048, 16,
+                256]) (bf16 runs both its kernels, see ``FA_CASES``), and
+                the SSD kernel at the mamba2-780m prefill (x [1, 2048, 48,
+                64], n 128, g 1, chunk 128) and the zamba2-7b prefill (x
+                [1, 2048, 112, 64], n 64), each with one call's device time
+                split over its three passes, each in float32 and bfloat16
+                and on padded shapes (K5: Sq 100, G 2, with B 1 and B 2, d
+                256, 128, 112, 32 and 16; K6: s 200 with b 1 g 1 and b 2
+                g 2);
   4. slice    — the paper's full-width configuration (configs/p2m_dvs.CONFIG)
                 as a fresh seeded deployment (backbone gain doubled so its
                 head spikes, see ``awake``), saved and reloaded through the
@@ -111,18 +114,22 @@ no ``ok`` line):
                 train steps at reduced() on cuda and on the CPU (loss,
                 gnorm and params within TRAIN_RTOL); then the sweep at
                 reduced() on both (``phase_sweep_parity``);
-  8. lm       — LM request serving at full published width
-                (internlm2-1.8b through the flash-attention kernel,
-                mamba2-780m through the SSD kernel; serving numerics, bf16,
-                seeded weights): SlotServer with batch 4, 8 requests of 2048
-                prompt tokens and 32 generated, counters set to 0 before and
-                read after, one prefill and one decode step under
-                torch.profiler; then, in float32 compute, prefill S tokens
-                and decode token S against the last logits of a prefill of
-                S + 1;
-  9. lm parity — both architectures' smoke variants served on cuda and on
-                the CPU from the same weights and prompts (float32 compute):
-                the same generated tokens;
+  8. lm       — LM request serving at full published width, each of
+                ``LM_ARCHS`` (serving numerics, bf16, seeded weights):
+                internlm2-1.8b, phi4-mini-3.8b (padded heads), gemma-7b
+                (GeGLU, head dim 256), qwen3-32b (qk-norm, 64 layers),
+                granite-moe-1b-a400m and grok-1-314b (MoE; grok cut to 4
+                of 64 layers, ``LM_DEPTH``) through the flash-attention
+                kernel, mamba2-780m through the SSD kernel, zamba2-7b
+                (hybrid) through both: SlotServer with batch 4, 8 requests
+                of 2048 prompt tokens and 32 generated, counters set to 0
+                before and read after, one prefill and one decode step
+                under torch.profiler, peak device memory; then, in float32
+                compute, prefill S tokens and decode token S against the
+                last logits of a prefill of S + 1;
+  9. lm parity — every architecture's smoke variant served on cuda and on
+                the CPU from the same weights and prompts (float32
+                compute): the same generated tokens;
  10. lm train — LM training at full published width through
                 ``train.loop.run`` (``phase_lm_train``): mamba2-780m (4
                 steps, batch 8 x 2048, K6 through ssd_trainable, 2 launches
@@ -144,11 +151,15 @@ the named ones of 5b-5e (``--only shard`` the shards), and prints no
 ``ok`` line; ``--only files``
 runs phases 1, 2 and 6d (with registry or adapt also named, 6d comes
 before phase 4); ``--only lm_train`` runs phases 1, 2 and 10 (first, when
-others are named too).
+others are named too); ``--only lm`` runs phases 1, 2, 8 and 9 (before
+any other named).
 
 ``python3 chip_smoke.py --measure-tree ROOT`` runs none of this: it times
 K1, the MAC-mode fold_chunk and K4 as the checkout at ROOT has them (see
 ``measure_tree``), to compare two commits in one call.
+``python3 chip_smoke.py --ptxas`` runs none of it either: it prints each
+kernel's registers and spills as ``nvcc -Xptxas -v`` reports them (see
+``ptxas_report``).
 """
 from __future__ import annotations
 
@@ -177,7 +188,13 @@ BF16_TC_FLOPS = 989e12
 # held per element, see fa_limit); K6 relative error
 FA_ATOL = 2e-3
 SSD_RTOL = 1e-3
-LM_ARCHS = ("internlm2-1.8b", "mamba2-780m")
+# the served LM architectures; the first two are also trained ([lm train])
+LM_TRAINED = ("internlm2-1.8b", "mamba2-780m")
+LM_ARCHS = LM_TRAINED + ("phi4-mini-3.8b", "gemma-7b", "qwen3-32b",
+                         "granite-moe-1b-a400m", "grok-1-314b", "zamba2-7b")
+# depth cuts, widths unchanged: grok-1-314b's 64 layers are 589.5 GiB in
+# bf16, more than one card (or four) holds; 4 layers are ~42 GB
+LM_DEPTH = {"grok-1-314b": 4}
 LM_BATCH, LM_REQUESTS, LM_PROMPT, LM_GEN = 4, 8, 2048, 32
 LM_LOGIT_ATOL = 1e-3      # full-width prefill(S) + decode vs prefill(S + 1)
 TRAIN_STEPS = 3           # unfrozen steps, then as many under freeze_p2m
@@ -536,14 +553,18 @@ def fa_limit(want, abs_attn, dtype, torch):
 
 
 # K5's cases: (B, S, H, KV, d, causal, timed row or None). bf16 runs the
-# wgmma kernel at d 64 and 128 and the mma.sync kernel at d 16 and 32;
-# the padded cases put Sq off the 128-row tile, and with B 2 a row read or
-# stored past Sq would land in the next batch
+# wgmma kernel at d 64 and 128 and the mma.sync kernel at d 16, 32, 112
+# and 256; the padded cases put Sq off the 128-row tile, and with B 2 a
+# row read or stored past Sq would land in the next batch
 FA_CASES = (
     (1, LM_PROMPT, 16, 16, 128, True, ""),          # the internlm2 prefill
     (1, LM_PROMPT, 16, 16, 128, False, "_noncausal"),
     (1, LM_PROMPT, 16, 16, 64, True, "_d64"),
     (1, LM_PROMPT, 16, 16, 32, True, "_d32"),
+    (1, LM_PROMPT, 32, 32, 112, True, "_d112"),     # zamba2's shared block
+    (1, LM_PROMPT, 16, 16, 256, True, "_d256"),     # the gemma-7b prefill
+    (1, 100, 16, 8, 112, True, None),
+    (1, 100, 16, 8, 256, True, None),
     (1, 100, 16, 8, 128, True, None),
     (2, 100, 16, 8, 128, True, None),
     (2, 100, 16, 8, 32, True, None),
@@ -556,7 +577,9 @@ def phase_flash_attention(torch, ops, fa_ref, flush) -> dict:
     and bfloat16: the internlm2-1.8b prefill (q/k/v [1, 2048, 16, 128] as
     project_qkv lays them out: one 2048-token prompt, its 16 physical
     heads, G = 1, causal), the same shape without the mask and at d 64 and
-    32, and padded shapes (Sq 100, G 2, B 1 and 2). Each is held per
+    32, zamba2-7b's shared block (q [1, 2048, 32, 112]) and the gemma-7b
+    prefill (q [1, 2048, 16, 256]), and padded shapes (Sq 100, G 2, B 1
+    and 2; d 112 and 256 too). Each is held per
     element against attention_ref on the same values reshaped to
     [B H, S, d] (K/V repeated to every query head); the 2048-token ones
     are timed beside the op's plain version and
@@ -634,14 +657,15 @@ def ssd_work(b, s, h, p, g, n, esize, chunk=128) -> tuple[int, int]:
     return n_bytes, 2 * fmas * b * h
 
 
-# K6's cases: (b, s, h, p, g, n); the first is the mamba2-780m prefill and
-# is timed, the others put s off the 128-step chunk, with b 2 and g 2 in
-# the last (a row past s, or a head's group, read wrong lands in another
-# batch or group)
+# K6's cases: (b, s, h, p, g, n, timed row or None); the mamba2-780m
+# prefill and zamba2-7b's (112 heads, state 64) are timed, the others put
+# s off the 128-step chunk, with b 2 and g 2 in the last (a row past s, or
+# a head's group, read wrong lands in another batch or group)
 SSD_CASES = (
-    (1, LM_PROMPT, 48, 64, 1, 128),
-    (1, 200, 48, 64, 1, 128),
-    (2, 200, 48, 64, 2, 128),
+    (1, LM_PROMPT, 48, 64, 1, 128, ""),
+    (1, LM_PROMPT, 112, 64, 1, 64, "_zamba2"),
+    (1, 200, 48, 64, 1, 128, None),
+    (2, 200, 48, 64, 2, 128, None),
 )
 
 
@@ -696,16 +720,18 @@ def fold_chunk_device_ms(torch, S: int) -> list[tuple[str, float]]:
 
 def phase_ssd(torch, sd, ssd_ref, flush) -> dict:
     """K6 against its plain version on each of ``SSD_CASES`` (the
-    mamba2-780m prefill, x [1, 2048, 48, 64], n 128, g 1, chunk 128, and
-    padded shapes, s 200, with b 1 g 1 and b 2 g 2), in float32 and
+    mamba2-780m prefill, x [1, 2048, 48, 64], n 128, g 1, chunk 128, the
+    zamba2-7b prefill, x [1, 2048, 112, 64], n 64, and padded shapes, s
+    200, with b 1 g 1 and b 2 g 2), in float32 and
     bfloat16: y and state within relative error 1e-3 of the largest
     magnitude (a bfloat16 y also within one bfloat16 step of its own value,
-    the rounding of the output). The prefill shape is timed, and one call's
-    device time is split over its three passes (torch.profiler)."""
+    the rounding of the output). The prefill shapes are timed, and one
+    call's device time is split over its three passes (torch.profiler).
+    Rows are keyed by type and case, mamba2's by type alone."""
     import torch.nn.functional as F
     gen = torch.Generator().manual_seed(4)
     rows = {}
-    for b, s, h, p, g, n in SSD_CASES:
+    for b, s, h, p, g, n, tag in SSD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
             x = torch.randn((b, s, h, p), generator=gen).to("cuda", dtype)
@@ -729,7 +755,7 @@ def phase_ssd(torch, sd, ssd_ref, flush) -> dict:
             err = dy.max().item()
             share = (dy / (SSD_RTOL * y_top + ulp * y_r.float().abs())
                      ).max().item()
-            if s != LM_PROMPT:
+            if tag is None:
                 print(f"[kernels] ssd              [{b}, {s}, {h}, {p}] g {g} "
                       f"n {n} {name}: y max|diff| {err:.3g}, at most "
                       f"{share:.3g} of the per-element limit, state rel err "
@@ -746,7 +772,7 @@ def phase_ssd(torch, sd, ssd_ref, flush) -> dict:
                    "plain_ms": time_ms(lambda: ssd_ref(*args), torch, reps=5,
                                        flush=flush),
                    "bound_ms": bb, "bound_by": by, "library_ms": None}
-            rows[name] = row
+            rows[name + tag] = row
             print_row(row, f"[{b}, {s}, {h}, {p}] n={n} {name}")
             print(f"[kernels] ssd              state rel err {st_err:.3g}, y "
                   f"max |y| {y_top:.3g}, at most {share:.3g} of the "
@@ -775,20 +801,44 @@ def read(counters) -> dict:
     return {k: v for c in counters for k, v in c.items()}
 
 
+def lm_config(arch: str):
+    """The arch's config, at the depth ``LM_DEPTH`` cuts it to."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch in LM_DEPTH:
+        cfg = replace(cfg, n_layers=LM_DEPTH[arch])
+    return cfg
+
+
+def lm_launches(cfg) -> dict:
+    """Kernel launches of one prefill: K5 once per self-attention call
+    (every layer of dense and moe, the shared block after each hybrid
+    group), K6 once per SSM block."""
+    attn = {"dense": cfg.n_layers, "moe": cfg.n_layers, "ssm": 0,
+            "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}[cfg.family]
+    ssm = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    return {"flash_attention": attn, "ssd": ssm}
+
+
 def phase_lm(torch, arch: str, counters) -> dict:
-    """One architecture at full published width behind the serving entry
-    point: seeded bf16 weights drawn on the card, a SlotServer of 4 lanes
-    serving 8 requests of 2048 prompt tokens and 32 generated tokens with
-    every counter set to 0 just before and read just after; one prefill and
-    one decode step under torch.profiler; then the float32-compute check
-    that prefill(S) + decode(token S) gives the last logits of
-    prefill(S + 1)."""
+    """One architecture at full published width (grok-1-314b at the depth
+    ``LM_DEPTH`` cuts it to) behind the serving entry point: seeded bf16
+    weights drawn on the card, a SlotServer of 4 lanes serving 8 requests
+    of 2048 prompt tokens and 32 generated tokens with every counter set
+    to 0 just before and read just after; one prefill and one decode step
+    under torch.profiler; then the float32-compute check that prefill(S) +
+    decode(token S) gives the last logits of prefill(S + 1). Peak device
+    memory is read after the serve and after the check."""
     from dataclasses import replace
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import SlotServer, make_requests, serve
     from repro_torch.models import lm
-    cfg = get_config(arch)
+    t_phase = time.perf_counter()
+    cfg = lm_config(arch)
     max_len = LM_PROMPT + LM_GEN + 8
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     server = SlotServer(cfg, LM_BATCH, max_len, device="cuda")
     scfg = server.cfg
     t0 = time.perf_counter()
@@ -796,8 +846,12 @@ def phase_lm(torch, arch: str, counters) -> dict:
                             scfg, "cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"[lm] {arch}: family {scfg.family}, {scfg.n_layers} layers, d_model "
-          f"{scfg.d_model}, vocab {scfg.vocab_size} (physical "
+    cut = (f" (cut from {get_config(arch).n_layers})" if arch in LM_DEPTH
+           else "")
+    print(f"[lm] {arch}: family {scfg.family}, {scfg.n_layers} layers{cut}, "
+          f"d_model {scfg.d_model}, heads {scfg.n_heads}/{scfg.n_kv_heads} "
+          f"(physical {scfg.phys_heads}/{scfg.phys_kv_heads}) of "
+          f"{scfg.head_dim}, vocab {scfg.vocab_size} (physical "
           f"{scfg.phys_vocab}), {n_params / 1e9:.3f} G parameters in "
           f"{scfg.param_dtype} drawn on the card in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -813,26 +867,29 @@ def phase_lm(torch, arch: str, counters) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read(counters)
+    peak_serve = torch.cuda.max_memory_allocated() / 1e9
     n_tok = sum(len(r.generated) for r in done)
     toks = [t for r in done for t in r.generated]
     if len(done) != LM_REQUESTS or n_tok != LM_REQUESTS * LM_GEN:
         fail(f"{arch}: {len(done)} requests, {n_tok} tokens")
     if not all(0 <= t < scfg.vocab_size for t in toks):
         fail(f"{arch}: a generated token lies outside the vocabulary")
-    kernel = "flash_attention" if scfg.family == "dense" else "ssd"
     want = {k: 0 for k in launches}
-    want[kernel] = scfg.n_layers * LM_REQUESTS
+    for name, n in lm_launches(scfg).items():
+        want[name] = n * LM_REQUESTS
     if launches != want:
         fail(f"{arch}: launches {launches}, expected {want}")
     pre, dec = server.timings["prefill"], sorted(server.timings["decode"])
     out = {"launches": launches, "wall_s": wall, "tok_s": n_tok / wall,
            "prefill_ms": 1e3 * sum(pre) / len(pre),
-           "decode_ms": 1e3 * dec[len(dec) // 2], "steps": steps}
+           "decode_ms": 1e3 * dec[len(dec) // 2], "steps": steps,
+           "head_dim": scfg.head_dim}
     print(f"[lm] {arch} serve: {len(done)} requests, {n_tok} tokens, "
           f"{steps} decode steps, wall {wall:.2f} s = {out['tok_s']:.1f} "
           f"tok/s; prefill {out['prefill_ms']:.1f} ms per request "
           f"({LM_PROMPT} tokens, host clock), decode step {out['decode_ms']:.2f} ms "
-          f"(median), launches {launches}")
+          f"(median), launches {launches}, peak device memory "
+          f"{peak_serve:.2f} GB")
 
     prompt = reqs[0].prompt.to("cuda")[None]
     profile_eval(torch, lm.prefill, (params, prompt, scfg, max_len), top=8,
@@ -859,17 +916,33 @@ def phase_lm(torch, arch: str, counters) -> dict:
     if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
         fail(f"{arch}: non-finite logits in float32 compute")
     diff = (a - b).abs().max().item()
+    peak = torch.cuda.max_memory_allocated() / 1e9
     if not diff <= LM_LOGIT_ATOL:
         fail(f"{arch}: prefill({S}) + decode vs prefill({S + 1}) logits "
              f"differ by {diff} > {LM_LOGIT_ATOL}")
-    out["consistency"] = diff
+    out.update(consistency=diff, peak_serve_gb=peak_serve, peak_gb=peak,
+               phase_s=time.perf_counter() - t_phase)
     print(f"[lm] {arch} float32 compute: prefill({S}) + decode(token {S}) vs "
           f"prefill({S + 1}): max |logit diff| {diff:.3g} (max |logit| "
           f"{b.abs().max().item():.3g}), argmax equal: "
-          f"{int(a.argmax()) == int(b.argmax())}")
+          f"{int(a.argmax()) == int(b.argmax())}; peak device memory "
+          f"{peak:.2f} GB; phase {out['phase_s']:.1f} s")
     del params, dec_logits, longer
     torch.cuda.empty_cache()
     return out
+
+
+def phase_lm_all(torch, counters) -> dict:
+    """Phases 8 and 9: every architecture of ``LM_ARCHS`` served at full
+    width, then every smoke variant on cuda and on the CPU."""
+    t0 = time.perf_counter()
+    runs = {arch: phase_lm(torch, arch, counters) for arch in LM_ARCHS}
+    print(f"[lm] phase {time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{a} {r['phase_s']:.1f} s" for a, r in runs.items()))
+    t0 = time.perf_counter()
+    phase_lm_parity(torch)
+    print(f"[lm parity] phase {time.perf_counter() - t0:.1f} s")
+    return runs
 
 
 def _leaves(tree):
@@ -1021,7 +1094,7 @@ def lm_train_parity(torch, counters) -> None:
     from repro_torch.train.steps import build_train_step
     from repro_torch.utils import tree_map, tree_paths
     shape = ShapeConfig("parity", "train", 128, 4)
-    for arch in LM_ARCHS:
+    for arch in LM_TRAINED:
         for compute in ("float32", "bfloat16"):
             cfg = replace(smoke_variant(get_config(arch)),
                           compute_dtype=compute)
@@ -3055,15 +3128,64 @@ def measure_tree(torch) -> None:
                   f"{str(dtype).split('.')[-1]}: {ms:.4f} ms")
 
 
+def _drop_args(sig: str) -> str:
+    """A demangled signature without its trailing argument list (template
+    arguments such as ``(int)128`` hold parentheses too)."""
+    depth = 0
+    for i in range(len(sig) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(sig[i], 0)
+        if depth == 0 and sig[i] == "(":
+            return sig[:i]
+    return sig
+
+
+def ptxas_report() -> None:
+    """``--ptxas``: compile each source under src/repro_torch/csrc with
+    the build's flags and ``-Xptxas -v`` (to an object file in a temporary
+    directory) and print, per kernel, its registers, stack frame and
+    spill bytes."""
+    import re
+    import tempfile
+    from repro_torch.kernels import _build
+    nvcc = _build.nvcc()
+    filt = Path(nvcc).with_name("cu++filt")
+    flags = [f for f in _build.NVCC_FLAGS if f != "-shared"]
+    for name in _build.sources():
+        with tempfile.TemporaryDirectory() as tmp:
+            out = subprocess.run(
+                [nvcc, *flags, "-Xptxas", "-v", "-c", "-o",
+                 str(Path(tmp) / "k.o"), str(_build.CSRC / f"{name}.cu")],
+                capture_output=True, text=True, timeout=600)
+        if out.returncode:
+            fail(f"nvcc {name}.cu: {out.stderr[-2000:]}")
+        kernel, frame = None, ""
+        for line in out.stderr.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                kernel = m.group(1)
+                if filt.exists():
+                    kernel = _drop_args(subprocess.run(
+                        [str(filt), kernel], capture_output=True, text=True
+                    ).stdout.strip())
+            elif "spill" in line:
+                frame = line.strip()
+            elif "registers" in line and kernel:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                print(f"[ptxas] {name}.cu {kernel}: {regs} registers; "
+                      f"{frame}")
+                kernel, frame = None, ""
+
+
 def main() -> int:
     global SRC, ONLY
     if sys.argv[1:2] == ["--measure-tree"]:
         SRC = Path(sys.argv[2]).resolve() / "src"
     if sys.argv[1:2] == ["--only"]:
         ONLY = set(sys.argv[2].split(","))
-        if not ONLY <= {"registry", "adapt", "shard", "files", "lm_train"}:
-            fail(f"--only takes registry, adapt, shard, files and/or "
-                 f"lm_train, got {sys.argv[2]}")
+        if not ONLY <= {"registry", "adapt", "shard", "files", "lm_train",
+                        "lm"}:
+            fail(f"--only takes registry, adapt, shard, files, lm_train "
+                 f"and/or lm, got {sys.argv[2]}")
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              f"the root of a checkout")
@@ -3073,6 +3195,10 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
+    if sys.argv[1:2] == ["--ptxas"]:
+        print(f"[device] nvidia-smi: {nvidia_smi()}")
+        ptxas_report()
+        return 0
     if sys.argv[1:2] == ["--measure-tree"]:
         print(f"[device] nvidia-smi: {nvidia_smi()}")
         measure_tree(torch)
@@ -3108,6 +3234,13 @@ def main() -> int:
     cfg = p2m_dvs.CONFIG
     all_counters = (pc.LAUNCHES, lif.LAUNCHES, sf.LAUNCHES, fa.LAUNCHES,
                     sd.LAUNCHES)
+    if "lm" in ONLY:
+        phase_lm_all(torch, all_counters)
+        ONLY.discard("lm")
+        if not ONLY:
+            print(f"[done] --only lm in {time.perf_counter() - t_all:.1f} s "
+                  f"(no ok line)")
+            return 0
     if "lm_train" in ONLY:
         t0 = time.perf_counter()
         phase_lm_train(torch, all_counters)
@@ -3287,13 +3420,11 @@ def main() -> int:
     phase_sweep_parity(torch)
     print(f"[sweep parity] {time.perf_counter() - t0:.1f} s")
 
-    # 8. LM request serving at full width, through K5 and K6
+    # 8. LM request serving at full width, through K5 and K6; 9. every
+    # smoke variant on cuda and on the CPU
     counters = (sf.LAUNCHES, pc.LAUNCHES, lif.LAUNCHES, fa.LAUNCHES,
                 sd.LAUNCHES)
-    lm_runs = {arch: phase_lm(torch, arch, counters) for arch in LM_ARCHS}
-
-    # 9. both smoke variants on cuda and on the CPU
-    phase_lm_parity(torch)
+    lm_runs = phase_lm_all(torch, counters)
 
     # 10. LM training at full width (K6 through ssd_trainable), parity,
     # restart and the launcher
@@ -3326,16 +3457,27 @@ def main() -> int:
             "launches": phys[row["name"]] + files.get(row["name"], 0),
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}})
-    for row, arch, source, replaces in (
-            (fa_rows["bfloat16"], "internlm2-1.8b", "flash_attention.cu",
-             "flash_attention/flash_attention.py:73"),
-            (ssd_rows["bfloat16"], "mamba2-780m", "ssd.cu", "ssd/ssd.py:85")):
+    # K5 by head dim (d 64 and 128 take the wgmma route, 112 and 256 the
+    # mma.sync one) and K6 by shape: launches of the serves whose prefills
+    # ran at that shape, plus training's
+    by_dim = {112: "_d112", 256: "_d256"}
+    fa_launches = {"": lm_train["flash_attention"], "_d112": 0, "_d256": 0}
+    for run in lm_runs.values():
+        fa_launches[by_dim.get(run["head_dim"], "")] += \
+            run["launches"]["flash_attention"]
+    lm_kernels = [(fa_rows["bfloat16" + tag], "flash_attention" + tag,
+                   "flash_attention.cu", "flash_attention/flash_attention.py:73",
+                   n) for tag, n in fa_launches.items()]
+    lm_kernels += [
+        (ssd_rows["bfloat16"], "ssd", "ssd.cu", "ssd/ssd.py:85",
+         lm_runs["mamba2-780m"]["launches"]["ssd"] + lm_train["ssd"]),
+        (ssd_rows["bfloat16_zamba2"], "ssd_zamba2", "ssd.cu", "ssd/ssd.py:85",
+         lm_runs["zamba2-7b"]["launches"]["ssd"])]
+    for row, name, source, replaces, n in lm_kernels:
         kernels.append({
-            "name": row["name"], "route": "cuda",
+            "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}",
-            "replaces": f"src/repro/kernels/{replaces}",
-            "launches": (lm_runs[arch]["launches"][row["name"]]
-                         + lm_train[row["name"]]),
+            "replaces": f"src/repro/kernels/{replaces}", "launches": n,
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}})
     print(f"[done] {time.perf_counter() - t_all:.1f} s")

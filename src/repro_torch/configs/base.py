@@ -9,9 +9,11 @@ carried across from it, depend on it. ``tp_multiple=1`` (smoke configs)
 keeps physical == logical. ``remat`` is read by the training path
 (``models/lm._maybe_remat``).
 
-The reference's sharding and MoE-dispatch knobs (``weight_sharding``,
-``zero1``, ``moe_impl``, ``capacity_factor``) are left out: nothing the
-port runs yet reads them. They come back with the slices that do.
+The reference's sharding knobs (``weight_sharding``, ``zero1``) and
+``moe_impl`` are left out: nothing the port runs reads them (the
+reference's own ``moe_apply`` never reads ``moe_impl``). They come back
+with the slices that do. ``capacity_factor`` is read by ``nn/moe.capacity``
+and ``serve/steps.serve_config``.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ class LMConfig:
     # --- MoE ---
     n_experts: int = 0
     top_k: int = 0
+    capacity_factor: float = 1.25
     # --- SSM (mamba2 / zamba2) ---
     ssm_state: int = 0
     ssm_expand: int = 2

@@ -14,22 +14,29 @@
 //
 // Three kernels, chosen by type and head dim d (never after a failure):
 //
-// float32, every d (flash_f32_kernel): FMA loops on the CUDA cores, never
-// TF32, so a float32 input keeps float32 accuracy. One block per (64 query
-// rows, b * H + h), 4 warps; each lane owns 4 rows x 8 keys of a score tile
-// and 4 rows x d/8 output columns; a row's running max and sum live in the
-// 8 lanes that share it. Q stays in shared memory; one kv buffer holds a
-// tile's K, then its V; P goes through shared memory.
+// float32, every d (flash_f32_kernel; d 16, 32, 64, 112, 128, 256): FMA
+// loops on the CUDA cores, never TF32, so a float32 input keeps float32
+// accuracy. One block per (64 query rows, b * H + h), 4 warps; each lane
+// owns 4 rows x 8 keys of a score tile and 4 rows x d/8 output columns; a
+// row's running max and sum live in the 8 lanes that share it. Q stays in
+// shared memory; one kv buffer holds a tile's K, then its V; P goes
+// through shared memory.
 //
 // bfloat16, d 64 and 128 (wg::flash_wgmma_kernel): the Hopper design, see
 // its own note below. One block per (128 query rows, b * H + h), two
 // consumer warpgroups and a TMA producer warp; both products are wgmma.
 //
-// bfloat16, d 16 and 32 (flash_bf16_kernel): mma.sync m16n8k16 with one
-// block per (64 query rows, b * H + h), 4 warps of 16 rows. At these widths
-// a 64-row wgmma tile would be mostly padding of the reduction and a TMA
-// box row would be 32 or 64 bytes, so the warp-level products stay. Each
-// warp keeps its 16 rows of Q as A fragments in registers; S = Q K^T lands
+// bfloat16, d 16, 32, 112 and 256 (flash_bf16_kernel): mma.sync m16n8k16
+// with one block per (64 query rows, b * H + h), 4 warps of 16 rows. At d
+// 16 and 32 a 64-row wgmma tile would be mostly padding of the reduction
+// and a TMA box row would be 32 or 64 bytes, so the warp-level products
+// stay. The wgmma route does not take d 112 (zamba2's shared block: a
+// 224-byte row is wider than the 128-byte swizzle and not a whole number
+// of its 64-column chunks) or d 256 (gemma: a two-stage ring of 128-key K
+// and V tiles is 256 KB, more than an SM's 227 KB of shared memory), so
+// these two take this route too; at d 256 Q's fragments are read from
+// shared memory at each k-step rather than kept in registers. Below d 256
+// each warp keeps its 16 rows of Q as A fragments in registers; S = Q K^T lands
 // in C fragments (a thread holds rows g and g + 8, g = lane / 4, and 2
 // keys of every 8), whose layout is that of the A fragment of P for the PV
 // product, so P never leaves the registers. K and V are staged row-major
@@ -89,6 +96,14 @@ constexpr int smem_bf16() {
   return 3 * kBQ * (D + 8) * 2;
 }
 
+// the largest batch of at most 8 loads that divides a thread's n loads
+__host__ __device__ constexpr int load_batch(int n) {
+  for (int b = 8; b > 1; --b) {
+    if (n % b == 0) return b;
+  }
+  return 1;
+}
+
 // stage rows [r0, r0 + 64) of one head of a [.., S, heads, D] tensor
 // (row stride `stride` elements) into a tile with rows of `LD` elements;
 // rows >= s are 0. Every thread issues its 16-byte loads in batches of up
@@ -101,8 +116,9 @@ __device__ __forceinline__ void stage(T* __restrict__ dst,
   constexpr int V = 16 / sizeof(T);           // elements per 16-byte load
   constexpr int PER_ROW = D / V;
   constexpr int N = kBQ * PER_ROW / kThreads; // loads per thread
-  constexpr int NB = N < 8 ? N : 8;
+  constexpr int NB = load_batch(N);           // 7 of 14 at float32 d 112
   static_assert(N * kThreads == kBQ * PER_ROW, "tile splits evenly");
+  static_assert(N % NB == 0, "batches split a thread's loads evenly");
 #pragma unroll
   for (int base = 0; base < N; base += NB) {
     uint4 buf[NB];
@@ -324,14 +340,21 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   stage<bf16, D, LQ>(qs, qb, q0, sq, q_stride);
   __syncthreads();
   const int r0 = warp * 16;         // the warp's first row in the tile
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int kq = 0; kq < KS; ++kq) {
+  // Q's A fragments stay in registers up to d 128. At d 256 they would
+  // take 64 registers beside the output's 128, so each k-step reads its
+  // fragment from the Q tile in shared memory instead.
+  constexpr bool kQInRegs = D <= 128;
+  const auto q_frag = [&](uint32_t (&a)[4], int kq) {
     const bf16* p = qs + (r0 + g) * LQ + kq * 16 + 2 * t;
-    qa[kq][0] = ld32(p);
-    qa[kq][1] = ld32(p + 8 * LQ);
-    qa[kq][2] = ld32(p + 8);
-    qa[kq][3] = ld32(p + 8 * LQ + 8);
+    a[0] = ld32(p);
+    a[1] = ld32(p + 8 * LQ);
+    a[2] = ld32(p + 8);
+    a[3] = ld32(p + 8 * LQ + 8);
+  };
+  uint32_t qa[kQInRegs ? KS : 1][4];
+  if constexpr (kQInRegs) {
+#pragma unroll
+    for (int kq = 0; kq < KS; ++kq) q_frag(qa[kq], kq);
   }
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f}, acc[DT][4];
@@ -353,13 +376,28 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     float s[NT][4];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
+    if constexpr (kQInRegs) {
 #pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int kq = 0; kq < KS; ++kq) {
+          const bf16* p = ks + (nt * 8 + g) * LQ + kq * 16 + 2 * t;
+          mma(s[nt], qa[kq], ld32(p), ld32(p + 8));
+        }
+    } else {
+      // the same products, each S tile summed over kq in the same order
+#pragma unroll 2
       for (int kq = 0; kq < KS; ++kq) {
-        const bf16* p = ks + (nt * 8 + g) * LQ + kq * 16 + 2 * t;
-        mma(s[nt], qa[kq], ld32(p), ld32(p + 8));
+        uint32_t a[4];
+        q_frag(a, kq);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const bf16* p = ks + (nt * 8 + g) * LQ + kq * 16 + 2 * t;
+          mma(s[nt], a, ld32(p), ld32(p + 8));
+        }
       }
     }
 
@@ -756,7 +794,9 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int b,
     case 16: return static_cast<int>(launch<T, 16>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
     case 32: return static_cast<int>(launch<T, 32>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
     case 64: return static_cast<int>(launch<T, 64>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
+    case 112: return static_cast<int>(launch<T, 112>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
     case 128: return static_cast<int>(launch<T, 128>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
+    case 256: return static_cast<int>(launch<T, 256>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -764,7 +804,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int b,
 }  // namespace
 
 // q, o [B, Sq, H, d]; k, v [B, Skv, KV, d]; all float32, contiguous;
-// d in {16, 32, 64, 128}; keys j >= kv_len are masked (kv_len <= Skv).
+// d in {16, 32, 64, 112, 128, 256}; keys j >= kv_len are masked (kv_len <= Skv).
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    void* o, int b, int h, int kv, int sq,

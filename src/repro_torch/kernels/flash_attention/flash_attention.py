@@ -20,7 +20,7 @@ from repro_torch.kernels import _build
 LAUNCHES = {"flash_attention": 0}
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 
 
 def _fn(name: str):

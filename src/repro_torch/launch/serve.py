@@ -4,10 +4,12 @@ PyTorch).
 
     python -m repro_torch.launch.serve --arch mamba2-780m --prompt-len 2048
     python -m repro_torch.launch.serve --device cpu --smoke --arch internlm2-1.8b
+    python -m repro_torch.launch.serve --device cpu --smoke --arch zamba2-7b
 
 Each request is prefilled alone (batch 1) into a free lane of a shared
 cache; one batched decode step then advances every occupied lane at its
-own position, and finished lanes are refilled from the queue. Prefill's
+own position, and finished lanes are refilled from the queue. It serves
+the dense, moe, ssm and hybrid families (``configs.ARCHS``). Prefill's
 attention and SSD scan run the CUDA kernels on the card (the plain
 versions on the CPU); decode runs the plain attention and SSM step. The
 weights are seeded, not trained.
@@ -22,11 +24,12 @@ from dataclasses import dataclass, field
 
 import torch
 
-from repro_torch.configs import get_config, smoke_variant
+from repro_torch.configs import ARCHS, get_config, smoke_variant
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import lm
 from repro_torch.serve.slots import SlotManager
 from repro_torch.serve.steps import serve_config
+from repro_torch.utils import tree_map
 
 
 @dataclass
@@ -49,19 +52,13 @@ class SlotServer:
 
     def __init__(self, cfg, batch: int, max_len: int,
                  device: str | torch.device | None = None):
-        if cfg.family == "hybrid":
-            raise NotImplementedError(
-                f"{cfg.name}: the hybrid family is not served. Its SSM cache "
-                f"is [n_groups, k, B, ...], and the reference's "
-                f"SlotServer.admit (src/repro/launch/serve.py:82) scatters "
-                f"the prefill cache on axis 1 as if it were the batch axis "
-                f"(it raises 'Incompatible shapes for broadcasting' there)")
         self.cfg = serve_config(cfg)
         self.device = resolve_device(device)
         self.batch = batch
         self.max_len = max_len
         self.cache = lm.init_cache(self.cfg, batch, max_len,
                                    device=self.device)
+        self.batch_axes = lm.cache_batch_axes(self.cfg)
         self.params = None
         self.slots: SlotManager[Request] = SlotManager(batch)
         self.pos = torch.zeros((batch,), dtype=torch.long, device=self.device)
@@ -78,15 +75,16 @@ class SlotServer:
         t0 = time.perf_counter()
         try:
             # prefill this prompt alone (batch 1), then copy its cache into
-            # the slot's rows (the batch axis is 1 in every cache leaf)
+            # the slot's rows, on each leaf's own batch axis (2 for a hybrid
+            # SSM leaf [n_groups, k, B, ...], 1 everywhere else)
             logits, cache1 = lm.prefill(self.params,
                                         req.prompt.to(self.device)[None, :],
                                         self.cfg, max_len=self.max_len)
         except Exception:
             self.slots.release(slot)     # a failed prefill must not leak the lane
             raise
-        for name, big in self.cache.items():
-            big[:, slot:slot + 1].copy_(cache1[name])
+        tree_map(lambda big, small, axis: big.narrow(axis, slot, 1)
+                 .copy_(small), self.cache, cache1, self.batch_axes)
         req.generated.append(int(torch.argmax(logits[0])))
         self.pos[slot] = req.prompt.shape[0]
         self.timings["prefill"].append(time.perf_counter() - t0)
@@ -143,7 +141,7 @@ def make_requests(n: int, prompt_len: int, max_new: int, vocab: int,
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", type=str, default="internlm2-1.8b",
-                    choices=["internlm2-1.8b", "mamba2-780m"])
+                    choices=list(ARCHS))
     ap.add_argument("--device", type=str, default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--smoke", action="store_true",

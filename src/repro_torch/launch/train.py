@@ -10,9 +10,11 @@ PyTorch).
 runs end to end; a rerun with the same ``--ckpt-dir`` resumes from its
 newest checkpoint (by default the run's last step is one). Without
 ``--smoke`` the shape is ``--shape`` from ``SHAPES``. The port trains
-the ``dense`` and ``ssm`` families on one device; the other
-architectures (``configs.LATER``), ``--production-mesh`` and
-``--multi-pod`` (sharding) print ``error: ...`` and exit 2.
+the ``dense`` (without qk-norm or GeGLU) and ``ssm`` families on one
+device; the other architectures (``lm.check_trainable``: the moe and
+hybrid families, qk-norm and GeGLU, and ``configs.LATER``),
+``--production-mesh`` and ``--multi-pod`` (sharding) print
+``error: ...`` and exit 2.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import sys
 
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.configs.base import SHAPES, ShapeConfig
+from repro_torch.models import lm
 from repro_torch.train.loop import LoopConfig, run
 
 
@@ -52,6 +55,7 @@ def main(argv: list[str] | None = None) -> int:
         return 2
     try:
         cfg = get_config(args.arch)
+        lm.check_trainable(cfg)
     except (NotImplementedError, KeyError) as e:
         print(f"error: {e.args[0]}", file=sys.stderr)
         return 2

@@ -37,12 +37,21 @@ def _device(gen: torch.Generator | None) -> torch.device:
 
 
 def _normal(gen, shape, stddev, dtype) -> torch.Tensor:
-    """Normal(0, stddev) drawn in float32, then cast (as the reference)."""
+    """Normal(0, stddev) drawn in float32, then cast (as the reference).
+    A stacked leaf (more than 2 dims) of a narrower type is drawn one
+    matrix at a time into its stack: drawn whole in float32 it would need
+    twice its own bytes again as a transient (33.5 GB for qwen3-32b's
+    ``[64, 5120, 25600]`` MLP stacks beside 61 GiB of weights)."""
     if gen is None:
         return torch.empty(shape, dtype=dtype, device="meta")
-    x = torch.randn(shape, generator=gen, device=gen.device,
-                    dtype=torch.float32)
-    return x.mul_(stddev).to(dtype)
+    if dtype == torch.float32 or len(shape) <= 2:
+        x = torch.randn(shape, generator=gen, device=gen.device,
+                        dtype=torch.float32)
+        return x.mul_(stddev).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for mat in out.view(-1, *shape[-2:]):
+        mat.copy_(_normal(gen, shape[-2:], stddev, dtype))
+    return out
 
 
 def _full(gen, shape, value, dtype) -> torch.Tensor:
@@ -97,19 +106,24 @@ def attn_init(gen, cfg: LMConfig, lead: tuple = ()) -> Params:
     H, KV = cfg.phys_heads, cfg.phys_kv_heads
     s = 1.0 / math.sqrt(D)
     dt = pdt(cfg)
-    return {
+    p = {
         "wq": _normal(gen, lead + (D, H * hd), s, dt),
         "wk": _normal(gen, lead + (D, KV * hd), s, dt),
         "wv": _normal(gen, lead + (D, KV * hd), s, dt),
         "wo": _normal(gen, lead + (H * hd, D), s / math.sqrt(2 * cfg.n_layers),
                       dt),
     }
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(gen, hd, dt, lead)
+        p["k_norm"] = rmsnorm_init(gen, hd, dt, lead)
+    return p
 
 
 def project_qkv(p: Params, x: torch.Tensor, kv_src: torch.Tensor,
                 cfg: LMConfig, positions: torch.Tensor,
                 kv_positions: torch.Tensor):
-    """Project and rotate. Returns q [B,S,H,hd], k/v [B,Skv,KV,hd]."""
+    """Project, normalise q and k per head (qk-norm configs) and rotate.
+    Returns q [B,S,H,hd], k/v [B,Skv,KV,hd]."""
     H, KV, hd = cfg.phys_heads, cfg.phys_kv_heads, cfg.head_dim
     dt = cdt(cfg)
     B, S = x.shape[0], x.shape[1]
@@ -117,6 +131,9 @@ def project_qkv(p: Params, x: torch.Tensor, kv_src: torch.Tensor,
     q = (x.to(dt) @ p["wq"].to(dt)).reshape(B, S, H, hd)
     k = (kv_src.to(dt) @ p["wk"].to(dt)).reshape(B, Skv, KV, hd)
     v = (kv_src.to(dt) @ p["wv"].to(dt)).reshape(B, Skv, KV, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, kv_positions, cfg.rope_theta), v)
 
@@ -252,11 +269,22 @@ def mlp_init(gen, cfg: LMConfig, lead: tuple = ()) -> Params:
     }
 
 
+def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """The GLU gate's activation: ``silu`` (SwiGLU) or ``gelu`` (GeGLU).
+    ``jax.nn.gelu``, the reference's, is the tanh approximation by
+    default, so GeGLU here is too (not the exact erf form)."""
+    if kind == "silu":
+        return F.silu(x)
+    if kind == "gelu":
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(kind)
+
+
 def mlp_apply(p: Params, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
-    """SwiGLU (``act="silu"``, the only activation of a ported config)."""
+    """SwiGLU or GeGLU, by ``cfg.act``."""
     dt = cdt(cfg)
     x = x.to(dt)
-    h = F.silu(x @ p["wg"].to(dt)) * (x @ p["wu"].to(dt))
+    h = _act(x @ p["wg"].to(dt), cfg.act) * (x @ p["wu"].to(dt))
     return h @ p["wd"].to(dt)
 
 

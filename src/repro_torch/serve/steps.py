@@ -10,7 +10,12 @@ from repro_torch.configs.base import LMConfig
 
 
 def serve_config(cfg: LMConfig) -> LMConfig:
-    """Serving numerics: bf16 params, no remat. The reference also makes
-    MoE dropless; the port has no MoE yet, and its config carries no
-    capacity factor."""
-    return replace(cfg, param_dtype="bfloat16", remat="none")
+    """Serving numerics: bf16 params, no remat, dropless MoE.
+
+    ``capacity_factor = E / K`` makes an expert's capacity cover the worst
+    routing (every token to one expert), so serving never drops a token and
+    a request's output does not depend on what shares its batch."""
+    kw = dict(param_dtype="bfloat16", remat="none")
+    if cfg.n_experts:
+        kw["capacity_factor"] = cfg.n_experts / max(cfg.top_k, 1)
+    return replace(cfg, **kw)

@@ -26,7 +26,7 @@ PyTree = Any
 
 def make_batch_specs(cfg: LMConfig, shape: ShapeConfig) -> dict:
     """``meta`` tensors of one global training batch's shapes and dtypes."""
-    lm._check_family(cfg)
+    lm.check_trainable(cfg)
     B, S = shape.global_batch, shape.seq_len
     return {k: torch.empty((B, S), dtype=torch.int64, device="meta")
             for k in ("tokens", "labels")}

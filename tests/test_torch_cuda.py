@@ -1,6 +1,7 @@
 """PyTorch port: the CUDA kernels (streaming fold, P²M conv, LIF, flash
-attention, SSD) against their plain versions, on the card, and the LM
-training path around K6 (``ssd_trainable``, remat, the donated step).
+attention, SSD) against their plain versions, on the card, the LM
+training path around K6 (``ssd_trainable``, remat, the donated step) and
+the served LM families' smoke variants on the card against the CPU.
 Imports no JAX, so it runs on the machine with the card:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 Without a GPU every test here skips."""
@@ -536,6 +537,25 @@ def test_cuda_gqa_attention_groups(cuda_device, dtype, causal, kv_len, G, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,sq,skv,H,KV,d,causal,kv_len", [
+    (1, 300, 300, 4, 4, 112, True, None),     # zamba2's shared block
+    (2, 100, 130, 4, 2, 112, False, None),    # G 2, Sq and Skv off tiles
+    (2, 260, 260, 4, 4, 112, True, 200),
+    (1, 300, 300, 2, 2, 256, True, None),     # gemma
+    (2, 100, 130, 4, 2, 256, False, None),
+    (2, 1, 96, 2, 2, 256, False, 40),         # decode-like
+])
+def test_cuda_flash_attention_wide_heads(cuda_device, dtype, B, sq, skv, H,
+                                         KV, d, causal, kv_len):
+    """Head dims 112 and 256 (the mma.sync and float32 routes; the wgmma
+    route takes only 64 and 128) against attention_ref, per element."""
+    q, k, v = _qkv(d + sq + KV, [(B, sq, H, d), (B, skv, KV, d),
+                                 (B, skv, KV, d)], dtype, cuda_device)
+    _check_gqa(q, k, v, causal, kv_len)
+
+
+@pytest.mark.cuda
 def test_cuda_flash_attention_rejects_bad_inputs(cuda_device):
     from repro_torch.kernels.flash_attention import flash_attention as fa
     q = torch.zeros((1, 8, 2, 16), device=cuda_device)
@@ -628,6 +648,15 @@ def test_cuda_ssd_unaligned_inputs(cuda_device, dtype):
     x, dt, A, B, C = _ssd_args(7, 1, 200, 4, 64, 1, 128, dtype, cuda_device)
     x, B, C = (_misaligned(t) for t in (x, B, C))
     _check_ssd((x, dt, A, B, C), 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssd_zamba2_heads(cuda_device, dtype):
+    """zamba2-7b's SSM shape: 112 heads of p 64, state n 64, one group, s
+    off the 128-step chunk."""
+    args = _ssd_args(64, 1, 300, 112, 64, 1, 64, dtype, cuda_device)
+    _check_ssd(args, 128)
 
 
 @pytest.mark.cuda
@@ -759,7 +788,44 @@ def test_cuda_donated_step_gives_the_same_bits(cuda_device, arch):
         assert torch.equal(a, b), path
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "gemma-7b", "qwen3-32b",
+                                  "granite-moe-1b-a400m", "grok-1-314b",
+                                  "zamba2-7b"])
+def test_cuda_lm_serving_matches_cpu(cuda_device, arch):
+    """A smoke variant served on the card (prefill through K5, and K6 for
+    zamba2) and on the CPU from the same weights and prompts, float32
+    compute: the same tokens for every request (more requests than lanes,
+    prompts of several lengths)."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch.serve import Request, SlotServer, serve
+    from repro_torch.models import lm
+    from repro_torch.serve.steps import serve_config
+    from repro_torch.utils import tree_map
+    cfg = replace(smoke_variant(get_config(arch)), compute_dtype="float32")
+    params = lm.init_params(torch.Generator().manual_seed(0),
+                            serve_config(cfg), "cpu")
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, cfg.vocab_size, (20 + 37 * i,),
+                             generator=gen) for i in range(5)]
+    out = {}
+    for device in ("cuda", "cpu"):
+        server = SlotServer(cfg, 2, 200, device=device)
+        server.load(tree_map(lambda t: t.to(device), params))
+        reqs = [Request(i, p, max_new=6) for i, p in enumerate(prompts)]
+        n = fa.LAUNCHES["flash_attention"]
+        serve(server, reqs)
+        out[device] = [r.generated for r in reqs]
+        if device == "cuda":
+            calls = cfg.n_layers // (cfg.attn_every or 1)
+            assert fa.LAUNCHES["flash_attention"] - n == 5 * calls
+    assert out["cuda"] == out["cpu"]
+
+
 # ---------------------------------------------------------------------------
+# the co-design sweep and deploying from it# ---------------------------------------------------------------------------
 # the co-design sweep and deploying from it
 # ---------------------------------------------------------------------------
 

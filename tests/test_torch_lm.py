@@ -35,6 +35,10 @@ from repro_torch.nn import layers, ssm
 from torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ["internlm2-1.8b", "mamba2-780m"]
+# every architecture the port carries (tests/test_torch_lm_families.py
+# holds the other six's models to the reference)
+PORTED = ARCHS + ["phi4-mini-3.8b", "gemma-7b", "qwen3-32b", "zamba2-7b",
+                  "granite-moe-1b-a400m", "grok-1-314b"]
 ATOL = 2e-4            # prefill/decode vs the reference (tests/test_models.py)
 
 
@@ -77,12 +81,12 @@ def _rel_err(got, want) -> float:
 # configs
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", PORTED)
 def test_configs_match_the_reference(arch):
     """Logical and TP-padded shapes equal the reference's, full and smoke;
     the port's config has every field of the reference's but the sharding
-    and MoE-dispatch knobs that nothing it runs reads."""
-    unread = {"weight_sharding", "zero1", "moe_impl", "capacity_factor"}
+    knobs and ``moe_impl`` (which the reference's moe_apply never reads)."""
+    unread = {"weight_sharding", "zero1", "moe_impl"}
     port_fields = {f.name for f in dataclasses.fields(get_config(arch))}
     ref_fields = {f.name for f in dataclasses.fields(j_get_config(arch))}
     assert port_fields == ref_fields - unread
@@ -97,17 +101,23 @@ def test_configs_match_the_reference(arch):
 
 
 def test_other_architectures_are_refused():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("zamba2-7b")
+    """The two cross-attention architectures (vlm, enc-dec) are the next
+    slice: get_config, init_params and SlotServer refuse them."""
+    from repro_torch.configs import list_archs
+    from repro.configs import list_archs as j_list_archs
+    assert list_archs() == j_list_archs()
+    for arch in ("llama-3.2-vision-90b", "seamless-m4t-large-v2"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            get_config(arch)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    hybrid = dataclasses.replace(smoke_variant(get_config("mamba2-780m")),
-                                 family="hybrid", attn_every=2)
-    with pytest.raises(NotImplementedError, match="family 'hybrid'"):
-        lm.init_params(torch.Generator(), hybrid, device="cpu")
+    vlm = dataclasses.replace(smoke_variant(get_config("internlm2-1.8b")),
+                              family="vlm", cross_every=2)
+    with pytest.raises(NotImplementedError, match="family 'vlm'"):
+        lm.init_params(torch.Generator(), vlm, device="cpu")
     from repro_torch.launch.serve import SlotServer
-    with pytest.raises(NotImplementedError, match="serve.py:82"):
-        SlotServer(hybrid, batch=2, max_len=16, device="cpu")
+    with pytest.raises(NotImplementedError, match="next slice"):
+        SlotServer(vlm, batch=2, max_len=16, device="cpu")
 
 
 # ---------------------------------------------------------------------------
