@@ -36,15 +36,19 @@ no ``ok`` line):
                 internlm2-1.8b prefill (q/k/v [1, 2048, 16, 128], causal;
                 bfloat16 held per element, see ``fa_limit``), without the
                 mask, at d 64 and 32, at zamba2-7b's shared block (q [1,
-                2048, 32, 112]) and the gemma-7b prefill (q [1, 2048, 16,
-                256]) (bf16 runs both its kernels, see ``FA_CASES``), and
+                2048, 32, 112]), the gemma-7b prefill (q [1, 2048, 16,
+                256]), llama-3.2-vision-90b's cross-attention (q [1, 2048,
+                64, 128] onto k/v [1, 1601, 16, 128], non-causal) and
+                seamless-m4t's encoder (q = k = v [1, 2048, 16, 64],
+                non-causal) (bf16 runs both its kernels, see
+                ``FA_CASES``), and
                 the SSD kernel at the mamba2-780m prefill (x [1, 2048, 48,
                 64], n 128, g 1, chunk 128) and the zamba2-7b prefill (x
                 [1, 2048, 112, 64], n 64), each with one call's device time
                 split over its three passes, each in float32 and bfloat16
                 and on padded shapes (K5: Sq 100, G 2, with B 1 and B 2, d
-                256, 128, 112, 32 and 16; K6: s 200 with b 1 g 1 and b 2
-                g 2);
+                256, 128, 112, 32 and 16, and non-causal onto Skv 161 at B
+                2, d 128 and 64; K6: s 200 with b 1 g 1 and b 2 g 2);
   4. slice    — the paper's full-width configuration (configs/p2m_dvs.CONFIG)
                 as a fresh seeded deployment (backbone gain doubled so its
                 head spikes, see ``awake``), saved and reloaded through the
@@ -74,7 +78,8 @@ no ``ok`` line):
                 on the one card (``phase_shard``): the [slice] serves over
                 2 shards through K2 and K3 bit-identical to phase 4's, with
                 2 x (chunks + warm-up) launches on the fast routes; registry
-                and adaptive serving over 2 shards; reduced() with one lane
+                serving, and adaptive serving of 8 streams, over 2 shards;
+                reduced() with one lane
                 a shard; the sweep at reduced() over 3 shards (records
                 equal); both launchers refusing more --devices than cards;
   6. physics  — the full-width model evaluated on the physics batch with
@@ -126,10 +131,17 @@ no ``ok`` line):
                 before and read after, one prefill and one decode step
                 under torch.profiler, peak device memory; then, in float32
                 compute, prefill S tokens and decode token S against the
-                last logits of a prefill of S + 1;
+                last logits of a prefill of S + 1. The cross-attention
+                architectures (``LM_CROSS``: llama-3.2-vision-90b, cut to
+                4 of its 20 groups, and seamless-m4t-large-v2) go through
+                the model API, as the reference serves them: the same 8
+                requests, each with its own seeded image embeddings
+                [1601, 1280] or frames [2048, 1024], as 2 lockstep
+                batches of 4 (``phase_lm_cross``), K5 on every self-,
+                cross- and encoder attention of both prefills;
   9. lm parity — every architecture's smoke variant served on cuda and on
-                the CPU from the same weights and prompts (float32
-                compute): the same generated tokens;
+                the CPU from the same weights and prompts (and images or
+                frames; float32 compute): the same generated tokens;
  10. lm train — LM training at full published width through
                 ``train.loop.run`` (``phase_lm_train``): mamba2-780m (4
                 steps, batch 8 x 2048, K6 through ssd_trainable, 2 launches
@@ -192,9 +204,14 @@ SSD_RTOL = 1e-3
 LM_TRAINED = ("internlm2-1.8b", "mamba2-780m")
 LM_ARCHS = LM_TRAINED + ("phi4-mini-3.8b", "gemma-7b", "qwen3-32b",
                          "granite-moe-1b-a400m", "grok-1-314b", "zamba2-7b")
+# the cross-attention architectures, served through the model API (the
+# slot server takes token prompts alone): vlm and enc-dec
+LM_CROSS = ("llama-3.2-vision-90b", "seamless-m4t-large-v2")
 # depth cuts, widths unchanged: grok-1-314b's 64 layers are 589.5 GiB in
-# bf16, more than one card (or four) holds; 4 layers are ~42 GB
-LM_DEPTH = {"grok-1-314b": 4}
+# bf16, more than one card (or four) holds; 4 layers are ~42 GB.
+# llama-3.2-vision-90b's 100 layers are 177.6 GB; 4 of its 20 groups (16
+# self- and 4 cross-attention layers) are ~38.9 GB
+LM_DEPTH = {"grok-1-314b": 4, "llama-3.2-vision-90b": 20}
 LM_BATCH, LM_REQUESTS, LM_PROMPT, LM_GEN = 4, 8, 2048, 32
 LM_LOGIT_ATOL = 1e-3      # full-width prefill(S) + decode vs prefill(S + 1)
 TRAIN_STEPS = 3           # unfrozen steps, then as many under freeze_p2m
@@ -552,23 +569,33 @@ def fa_limit(want, abs_attn, dtype, torch):
     return u * want.abs() + u * (1 + 2.0 ** -6) * abs_attn + 1e-5
 
 
-# K5's cases: (B, S, H, KV, d, causal, timed row or None). bf16 runs the
-# wgmma kernel at d 64 and 128 and the mma.sync kernel at d 16, 32, 112
-# and 256; the padded cases put Sq off the 128-row tile, and with B 2 a
-# row read or stored past Sq would land in the next batch
+# K5's cases: (B, Sq, Skv, H, KV, d, causal, timed row or None). bf16
+# runs the wgmma kernel at d 64 and 128 and the mma.sync kernel at d 16,
+# 32, 112 and 256; the padded cases put Sq off the 128-row tile, and with
+# B 2 a row read or stored past Sq would land in the next batch. The
+# non-causal cross cases put Skv off the 128-key tile (1601 = 12 x 128 +
+# 65 image tokens; 161 at B 2, where a key read past Skv would be the next
+# batch's)
 FA_CASES = (
-    (1, LM_PROMPT, 16, 16, 128, True, ""),          # the internlm2 prefill
-    (1, LM_PROMPT, 16, 16, 128, False, "_noncausal"),
-    (1, LM_PROMPT, 16, 16, 64, True, "_d64"),
-    (1, LM_PROMPT, 16, 16, 32, True, "_d32"),
-    (1, LM_PROMPT, 32, 32, 112, True, "_d112"),     # zamba2's shared block
-    (1, LM_PROMPT, 16, 16, 256, True, "_d256"),     # the gemma-7b prefill
-    (1, 100, 16, 8, 112, True, None),
-    (1, 100, 16, 8, 256, True, None),
-    (1, 100, 16, 8, 128, True, None),
-    (2, 100, 16, 8, 128, True, None),
-    (2, 100, 16, 8, 32, True, None),
-    (2, 100, 16, 8, 16, False, None),
+    (1, LM_PROMPT, LM_PROMPT, 16, 16, 128, True, ""),   # internlm2 prefill
+    (1, LM_PROMPT, LM_PROMPT, 16, 16, 128, False, "_noncausal"),
+    (1, LM_PROMPT, LM_PROMPT, 16, 16, 64, True, "_d64"),
+    (1, LM_PROMPT, LM_PROMPT, 16, 16, 32, True, "_d32"),
+    (1, LM_PROMPT, LM_PROMPT, 32, 32, 112, True, "_d112"),  # zamba2's shared
+    (1, LM_PROMPT, LM_PROMPT, 16, 16, 256, True, "_d256"),  # gemma-7b
+    # llama-3.2-vision's cross-attention onto its 1601 image tokens
+    (1, LM_PROMPT, 1601, 64, 16, 128, False, "_vlm_cross"),
+    # seamless-m4t's encoder (and its decoder's cross-attention onto as
+    # many frames)
+    (1, LM_PROMPT, LM_PROMPT, 16, 16, 64, False, "_encoder"),
+    (1, 100, 100, 16, 8, 112, True, None),
+    (1, 100, 100, 16, 8, 256, True, None),
+    (1, 100, 100, 16, 8, 128, True, None),
+    (2, 100, 100, 16, 8, 128, True, None),
+    (2, 100, 100, 16, 8, 32, True, None),
+    (2, 100, 100, 16, 8, 16, False, None),
+    (2, 100, 161, 16, 4, 128, False, None),
+    (2, 100, 161, 16, 16, 64, False, None),
 )
 
 
@@ -577,28 +604,33 @@ def phase_flash_attention(torch, ops, fa_ref, flush) -> dict:
     and bfloat16: the internlm2-1.8b prefill (q/k/v [1, 2048, 16, 128] as
     project_qkv lays them out: one 2048-token prompt, its 16 physical
     heads, G = 1, causal), the same shape without the mask and at d 64 and
-    32, zamba2-7b's shared block (q [1, 2048, 32, 112]) and the gemma-7b
-    prefill (q [1, 2048, 16, 256]), and padded shapes (Sq 100, G 2, B 1
-    and 2; d 112 and 256 too). Each is held per
-    element against attention_ref on the same values reshaped to
-    [B H, S, d] (K/V repeated to every query head); the 2048-token ones
-    are timed beside the op's plain version and
-    scaled_dot_product_attention. Rows are keyed by type and case, the
+    32, zamba2-7b's shared block (q [1, 2048, 32, 112]), the gemma-7b
+    prefill (q [1, 2048, 16, 256]), llama-3.2-vision's cross-attention (q
+    [1, 2048, 64, 128] onto k/v [1, 1601, 16, 128], G 4, non-causal),
+    seamless-m4t's encoder (q = k = v [1, 2048, 16, 64], non-causal), and
+    padded shapes (Sq 100, G 2, B 1 and 2; d 112 and 256 too; Skv 161 at B
+    2, non-causal). Each is held per element against attention_ref on the
+    same values reshaped to [B H, S, d] (K/V repeated to every query
+    head); the 2048-token ones are timed beside the op's plain version
+    and scaled_dot_product_attention. Rows are keyed by type and case, the
     serving shape's by type alone."""
     import torch.nn.functional as F
     gen = torch.Generator().manual_seed(3)
     rows = {}
-    for B, S, H, KV, d, causal, tag in FA_CASES:
+    for B, S, Skv, H, KV, d, causal, tag in FA_CASES:
         G = H // KV
         mask = "causal" if causal else "non-causal"
+        shape = f"q [{B}, {S}, {H}, {d}]" + (f" onto {Skv} keys"
+                                             if Skv != S else "")
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
             q = torch.randn((B, S, H, d), generator=gen).to("cuda", dtype)
-            k, v = (torch.randn((B, S, KV, d), generator=gen).to("cuda", dtype)
-                    for _ in range(2))
+            k, v = (torch.randn((B, Skv, KV, d), generator=gen)
+                    .to("cuda", dtype) for _ in range(2))
             got = ops.gqa_attention(q, k, v, causal=causal)
             bh = [t.float().repeat_interleave(H // t.shape[2], dim=2)
-                  .transpose(1, 2).reshape(B * H, S, d) for t in (q, k, v)]
+                  .transpose(1, 2).reshape(B * H, t.shape[1], d)
+                  for t in (q, k, v)]
             want = fa_ref.attention_ref(*bh, causal=causal)
             abs_attn = fa_ref.attention_ref(bh[0], bh[1], bh[2].abs(),
                                             causal=causal)
@@ -608,19 +640,21 @@ def phase_flash_attention(torch, ops, fa_ref, flush) -> dict:
             share = (diff / fa_limit(want, abs_attn, dtype, torch)).max().item()
             err = diff.max().item()
             if not share <= 1.0:
-                fail(f"flash_attention q [{B}, {S}, {H}, {d}] G {G} {mask} "
-                     f"{name}: max |diff| {err}, {share:.3g} times the limit")
+                fail(f"flash_attention {shape} G {G} {mask} {name}: max "
+                     f"|diff| {err}, {share:.3g} times the limit")
             del got, want, abs_attn, bh, diff
-            print(f"[kernels] flash_attention  q [{B}, {S}, {H}, {d}] G {G} "
-                  f"{mask} {name}: max|diff| {err:.3g}, at most "
-                  f"{share:.3g} of the per-element limit")
+            print(f"[kernels] flash_attention  {shape} G {G} {mask} {name}: "
+                  f"max|diff| {err:.3g}, at most {share:.3g} of the "
+                  f"per-element limit")
             if tag is None:
                 continue
             # QK^T and PV: 4 d flops for each (q, k) pair the mask keeps;
-            # the bf16 work belongs on the tensor cores, float32 on the
-            # CUDA cores
-            pairs = S * (S + 1) // 2 if causal else S * S
-            b, by = bound_ms(2 * (H + KV) * B * S * d * q.element_size(),
+            # q and o move H heads of S rows, k and v KV heads of Skv; the
+            # bf16 work belongs on the tensor cores, float32 on the CUDA
+            # cores
+            pairs = S * (S + 1) // 2 if causal else S * Skv
+            b, by = bound_ms(2 * (H * S + KV * Skv) * B * d
+                             * q.element_size(),
                              4 * B * H * d * pairs,
                              BF16_TC_FLOPS if dtype == torch.bfloat16
                              else FP32_FLOPS)
@@ -635,10 +669,11 @@ def phase_flash_attention(torch, ops, fa_ref, flush) -> dict:
                    "bound_ms": b, "bound_by": by,
                    "library_ms": time_ms(
                        lambda: F.scaled_dot_product_attention(
-                           qt, kt, vt, is_causal=causal),
+                           qt, kt, vt, is_causal=causal,
+                           enable_gqa=G > 1),
                        torch, flush=flush)}
             rows[name + tag] = row
-            print_row(row, f"q [{B}, {S}, {H}, {d}] {mask} {name}")
+            print_row(row, f"{shape} {mask} {name}")
             del q, k, v, qt, kt, vt
     return rows
 
@@ -812,13 +847,19 @@ def lm_config(arch: str):
 
 
 def lm_launches(cfg) -> dict:
-    """Kernel launches of one prefill: K5 once per self-attention call
-    (every layer of dense and moe, the shared block after each hybrid
-    group), K6 once per SSM block."""
-    attn = {"dense": cfg.n_layers, "moe": cfg.n_layers, "ssm": 0,
-            "hybrid": cfg.n_layers // max(cfg.attn_every, 1)}[cfg.family]
+    """Kernel launches of one prefill: K5 once per attention call, causal
+    for self-attention (every layer of dense and moe, the shared block
+    after each hybrid group, vlm's self blocks, enc-dec's decoder layers)
+    and without the mask for cross and encoder attention (vlm's cross
+    blocks; enc-dec's encoder layers and each decoder layer's
+    cross-attention); K6 once per SSM block."""
+    cross = {"vlm": cfg.n_layers // max(cfg.cross_every, 1),
+             "audio": cfg.encoder_layers + cfg.n_layers}.get(cfg.family, 0)
+    causal = {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_every, 1),
+              "vlm": cfg.n_layers - cross}.get(cfg.family, cfg.n_layers)
     ssm = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
-    return {"flash_attention": attn, "ssd": ssm}
+    return {"flash_attention": causal, "flash_attention_noncausal": cross,
+            "ssd": ssm}
 
 
 def phase_lm(torch, arch: str, counters) -> dict:
@@ -892,8 +933,8 @@ def phase_lm(torch, arch: str, counters) -> dict:
           f"{peak_serve:.2f} GB")
 
     prompt = reqs[0].prompt.to("cuda")[None]
-    profile_eval(torch, lm.prefill, (params, prompt, scfg, max_len), top=8,
-                 tag="lm", what=f"{arch} prefill of {LM_PROMPT} tokens")
+    profile_eval(torch, lm.prefill, (params, prompt, scfg, None, max_len),
+                 top=8, tag="lm", what=f"{arch} prefill of {LM_PROMPT} tokens")
     tokens = torch.zeros((LM_BATCH, 1), dtype=torch.long, device="cuda")
     profile_eval(torch, lm.decode_step,
                  (params, tokens, server.pos, server.cache, scfg),
@@ -932,11 +973,196 @@ def phase_lm(torch, arch: str, counters) -> dict:
     return out
 
 
+def cross_source(torch, cfg, n: int, seed: int, device="cuda",
+                 frames: int = LM_PROMPT):
+    """The stub front end's output for ``n`` requests, each drawn from
+    its own seed: image embeddings [n, n_image_tokens, vision_dim] (vlm)
+    or frame embeddings [n, frames, d_model] (enc-dec), in the compute
+    dtype."""
+    from repro_torch.nn import layers as L
+    shape = ((frames, cfg.d_model) if cfg.is_encdec
+             else (cfg.n_image_tokens, cfg.vision_dim))
+    return torch.stack([torch.randn(shape, generator=torch.Generator(
+        device=device).manual_seed(seed + i), device=device)
+        for i in range(n)]).to(L.cdt(cfg))
+
+
+def cross_prefill(cfg, params, tokens, src, max_len=None):
+    """The family's prefill entry point: ``lm.prefill(...,
+    img_embed=src)`` or ``encdec.prefill(params, src, tokens, ...)``."""
+    from repro_torch.models import encdec, lm
+    if cfg.is_encdec:
+        return encdec.prefill(params, src, tokens, cfg, max_len=max_len)
+    return lm.prefill(params, tokens, cfg, img_embed=src, max_len=max_len)
+
+
+def cross_generate(torch, cfg, params, tokens, src, n_new: int,
+                   times: dict | None = None) -> list:
+    """Greedy lockstep generation through the model API: one prefill of
+    the batch ``tokens`` [B, S], then ``n_new - 1`` decode steps at the
+    scalar position S + i. Returns each row's ``n_new`` tokens; with
+    ``times``, appends the host seconds of the prefill (to its first
+    token) and of each decode step (to its tokens)."""
+    from repro_torch.models import encdec, lm
+    mod = encdec if cfg.is_encdec else lm
+    B, S = tokens.shape
+    t0 = time.perf_counter()
+    logits, cache = cross_prefill(cfg, params, tokens, src,
+                                  max_len=S + n_new)
+    tok = logits.argmax(-1)
+    out = [tok.tolist()]
+    if times is not None:
+        times["prefill"].append(time.perf_counter() - t0)
+    for i in range(n_new - 1):
+        t0 = time.perf_counter()
+        logits, cache = mod.decode_step(params, tok[:, None], torch.tensor(
+            S + i, device=tokens.device), cache, cfg)
+        tok = logits[:, 0].argmax(-1)
+        out.append(tok.tolist())
+        if times is not None:
+            times["decode"].append(time.perf_counter() - t0)
+    return [list(r) for r in zip(*out)]
+
+
+def phase_lm_cross(torch, arch: str, counters) -> dict:
+    """A cross-attention architecture at full published width
+    (llama-3.2-vision-90b at the depth ``LM_DEPTH`` cuts it to) through
+    the model API, which is how the reference serves these families (its
+    slot server takes token prompts alone): seeded bf16 weights drawn on
+    the card; 8 requests of 2048 prompt tokens, each with its own seeded
+    image embeddings [1601, 1280] or frames [2048, 1024], served as 2
+    lockstep batches of 4 (one prefill, then 31 decode steps at a scalar
+    position: 32 tokens a request), every counter set to 0 just before
+    and read just after; one prefill and one decode step under
+    torch.profiler; then the float32-compute check that prefill(S) +
+    decode(token S) gives the last logits of prefill(S + 1) with the same
+    images or frames."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import encdec, lm
+    from repro_torch.serve.steps import serve_config
+    t_phase = time.perf_counter()
+    scfg = serve_config(lm_config(arch))
+    mod = encdec if scfg.is_encdec else lm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = mod.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             scfg, "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    cut = (f" (cut from {get_config(arch).n_layers})" if arch in LM_DEPTH
+           else "")
+    extra = (f"{scfg.encoder_layers} encoder + {scfg.n_layers} decoder "
+             f"layers, frames [{LM_PROMPT}, {scfg.d_model}]"
+             if scfg.is_encdec else
+             f"{scfg.n_layers} layers{cut} in groups of "
+             f"{scfg.cross_every - 1} self + 1 cross, images "
+             f"[{scfg.n_image_tokens}, {scfg.vision_dim}]")
+    print(f"[lm] {arch}: family {scfg.family}, {extra}, d_model "
+          f"{scfg.d_model}, heads {scfg.n_heads}/{scfg.n_kv_heads} (physical "
+          f"{scfg.phys_heads}/{scfg.phys_kv_heads}) of {scfg.head_dim}, "
+          f"vocab {scfg.vocab_size} (physical {scfg.phys_vocab}), "
+          f"{n_params / 1e9:.3f} G parameters in {scfg.param_dtype} drawn on "
+          f"the card in {time.perf_counter() - t0:.1f} s")
+    reqs = make_requests(LM_REQUESTS, LM_PROMPT, LM_GEN, scfg.vocab_size,
+                         seed=1)
+    prompts = torch.stack([r.prompt for r in reqs]).to("cuda")
+    src = cross_source(torch, scfg, LM_REQUESTS, seed=100)
+    cross_generate(torch, scfg, params, prompts[:1, :64], src[:1], 2)
+    times = {"prefill": [], "decode": []}
+    zero(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b0 in range(0, LM_REQUESTS, LM_BATCH):
+        rows = cross_generate(torch, scfg, params,
+                              prompts[b0:b0 + LM_BATCH],
+                              src[b0:b0 + LM_BATCH], LM_GEN, times)
+        for r, toks in zip(reqs[b0:b0 + LM_BATCH], rows):
+            r.generated = toks
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read(counters)
+    peak_serve = torch.cuda.max_memory_allocated() / 1e9
+    n_tok = sum(len(r.generated) for r in reqs)
+    if n_tok != LM_REQUESTS * LM_GEN:
+        fail(f"{arch}: {n_tok} tokens")
+    if not all(0 <= t < scfg.vocab_size for r in reqs for t in r.generated):
+        fail(f"{arch}: a generated token lies outside the vocabulary")
+    want = {k: 0 for k in launches}
+    for name, n in lm_launches(scfg).items():
+        want[name] = n * (LM_REQUESTS // LM_BATCH)
+    if launches != want:
+        fail(f"{arch}: launches {launches}, expected {want}")
+    dec = sorted(times["decode"])
+    out = {"launches": launches, "wall_s": wall, "tok_s": n_tok / wall,
+           "prefill_ms": 1e3 * sum(times["prefill"]) / len(times["prefill"]),
+           "decode_ms": 1e3 * dec[len(dec) // 2],
+           "steps": len(dec), "head_dim": scfg.head_dim}
+    print(f"[lm] {arch} serve (model API, {LM_REQUESTS // LM_BATCH} lockstep "
+          f"batches of {LM_BATCH}): {LM_REQUESTS} requests, {n_tok} tokens, "
+          f"{len(dec)} decode steps, wall {wall:.2f} s = {out['tok_s']:.1f} "
+          f"tok/s; prefill {out['prefill_ms']:.1f} ms per batch of "
+          f"{LM_BATCH} x {LM_PROMPT} tokens (host clock, to its first "
+          f"token), decode step {out['decode_ms']:.2f} ms (median), "
+          f"launches {launches}, peak device memory {peak_serve:.2f} GB")
+
+    profile_eval(torch, cross_prefill,
+                 (scfg, params, prompts[:LM_BATCH], src[:LM_BATCH],
+                  LM_PROMPT + 8), top=8, tag="lm",
+                 what=f"{arch} prefill of {LM_BATCH} x {LM_PROMPT} tokens")
+    _, cache = cross_prefill(scfg, params, prompts[:LM_BATCH, :16],
+                             src[:LM_BATCH], 24)
+    tokens = torch.zeros((LM_BATCH, 1), dtype=torch.long, device="cuda")
+    profile_eval(torch, mod.decode_step,
+                 (params, tokens, torch.tensor(16, device="cuda"), cache,
+                  scfg), tag="lm",
+                 what=f"{arch} decode step at batch {LM_BATCH}")
+    del cache
+
+    # consistency in float32 compute: the kernel path (prefill) against the
+    # plain path (decode) for one more token, same images or frames
+    cfg32 = replace(scfg, compute_dtype="float32")
+    S = LM_PROMPT
+    tok = torch.cat([reqs[0].prompt, torch.tensor(reqs[0].generated[:1])]
+                    ).to("cuda")[None]
+    src32 = src[:1].float()
+    _, cache = cross_prefill(cfg32, params, tok[:, :S], src32, S + 8)
+    dec_logits, _ = mod.decode_step(params, tok[:, S:], torch.tensor(
+        S, device="cuda"), cache, cfg32)
+    del cache
+    longer, _ = cross_prefill(cfg32, params, tok, src32)
+    V = scfg.vocab_size
+    a, b = dec_logits[0, 0, :V], longer[0, :V]
+    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
+        fail(f"{arch}: non-finite logits in float32 compute")
+    diff = (a - b).abs().max().item()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not diff <= LM_LOGIT_ATOL:
+        fail(f"{arch}: prefill({S}) + decode vs prefill({S + 1}) logits "
+             f"differ by {diff} > {LM_LOGIT_ATOL}")
+    out.update(consistency=diff, peak_serve_gb=peak_serve, peak_gb=peak,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"[lm] {arch} float32 compute: prefill({S}) + decode(token {S}) vs "
+          f"prefill({S + 1}), same {'frames' if scfg.is_encdec else 'images'}"
+          f": max |logit diff| {diff:.3g} (max |logit| "
+          f"{b.abs().max().item():.3g}), argmax equal: "
+          f"{int(a.argmax()) == int(b.argmax())}; peak device memory "
+          f"{peak:.2f} GB; phase {out['phase_s']:.1f} s")
+    del params, dec_logits, longer, src
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_lm_all(torch, counters) -> dict:
-    """Phases 8 and 9: every architecture of ``LM_ARCHS`` served at full
-    width, then every smoke variant on cuda and on the CPU."""
+    """Phases 8 and 9: every architecture of ``LM_ARCHS`` and ``LM_CROSS``
+    served at full width, then every smoke variant on cuda and on the
+    CPU."""
     t0 = time.perf_counter()
     runs = {arch: phase_lm(torch, arch, counters) for arch in LM_ARCHS}
+    runs.update({arch: phase_lm_cross(torch, arch, counters)
+                 for arch in LM_CROSS})
     print(f"[lm] phase {time.perf_counter() - t0:.1f} s: "
           + ", ".join(f"{a} {r['phase_s']:.1f} s" for a, r in runs.items()))
     t0 = time.perf_counter()
@@ -955,11 +1181,13 @@ def _leaves(tree):
 
 def phase_lm_parity(torch) -> None:
     """Each architecture's smoke variant served on cuda and on the CPU from
-    the same weights and prompts, float32 compute: the same tokens."""
+    the same weights and prompts (and images or frames), float32 compute:
+    the same tokens. The cross-attention ones go through the model API,
+    vlm at 4 layers (two groups)."""
     from dataclasses import replace
     from repro_torch.configs import get_config, smoke_variant
     from repro_torch.launch.serve import Request, SlotServer, serve
-    from repro_torch.models import lm
+    from repro_torch.models import encdec, lm
     from repro_torch.serve.steps import serve_config
     for arch in LM_ARCHS:
         cfg = replace(smoke_variant(get_config(arch)), compute_dtype="float32")
@@ -980,6 +1208,27 @@ def phase_lm_parity(torch) -> None:
                  f"{out['cuda']} vs {out['cpu']}")
         print(f"[lm parity] {arch} smoke variant, 5 requests (prompts 20-168 "
               f"tokens) on 2 lanes: cuda and cpu generate the same "
+              f"{sum(map(len, out['cuda']))} tokens")
+    for arch in LM_CROSS:
+        cfg = replace(smoke_variant(get_config(arch)), compute_dtype="float32")
+        if not cfg.is_encdec:
+            cfg = replace(cfg, n_layers=4)
+        mod = encdec if cfg.is_encdec else lm
+        params = mod.init_params(torch.Generator().manual_seed(0),
+                                 serve_config(cfg), "cpu")
+        tokens = torch.randint(0, cfg.vocab_size, (3, 37),
+                               generator=torch.Generator().manual_seed(5))
+        src = cross_source(torch, cfg, 3, seed=6, device="cpu", frames=29)
+        out = {device: cross_generate(
+            torch, cfg, lm._tree_map(lambda t: t.to(device), params),
+            tokens.to(device), src.to(device), 8) for device in ("cuda", "cpu")}
+        if out["cuda"] != out["cpu"]:
+            fail(f"{arch} smoke: cuda and cpu generate different tokens: "
+                 f"{out['cuda']} vs {out['cpu']}")
+        print(f"[lm parity] {arch} smoke variant ({cfg.n_layers} layers), 3 "
+              f"prompts of 37 tokens with their "
+              f"{'frames' if cfg.is_encdec else 'images'}, one batch through "
+              f"the model API: cuda and cpu generate the same "
               f"{sum(map(len, out['cuda']))} tokens")
 
 
@@ -2333,6 +2582,11 @@ ADAPT_DRIFT = {"null_mismatch": 0.35, "sigma": 0.3}
 # [adapt parity]: dw / dtheta on cuda vs the CPU, of the largest element
 # (the gradient pass runs cuDNN's convolutions against the CPU's)
 ADAPT_RTOL = 1e-4
+# depth cuts of the host-bound adaptive serves (the eager per-lane fold
+# and backward): [adapt parity] serves 8 streams on 4 lanes (two waves)
+# on each device, [shard] 8 of the [slice] streams on 8 lanes (4 a shard)
+ADAPT_PARITY_STREAMS, ADAPT_PARITY_LANES = 8, 4
+SHARD_ADAPT_LANES = 8
 SWAP_WINDOW = 6           # [registry] hot-swap: b retired, b2 registered
 ONLY: set = set()         # --only: the phases of registry_and_adapt to run
 
@@ -2708,8 +2962,9 @@ def phase_registry_parity(torch) -> None:
 
 
 def phase_adapt_parity(torch) -> None:
-    """reduced(): surrogate adaptation (lr_w 1.0, lr_theta 0.01) of 16
-    streams on 8 lanes on cuda and on the CPU: update counts equal; dw and
+    """reduced(): surrogate adaptation (lr_w 1.0, lr_theta 0.01) of
+    ``ADAPT_PARITY_STREAMS`` streams on ``ADAPT_PARITY_LANES`` lanes on
+    cuda and on the CPU: update counts equal; dw and
     dtheta within ADAPT_RTOL of their largest element; logits within
     LOGIT_ATOL. Then on the card, lr 0 against the frozen K2 serve: logits
     within LOGIT_ATOL, predictions equal, the gap printed."""
@@ -2723,12 +2978,13 @@ def phase_adapt_parity(torch) -> None:
     def serve(device, adapt):
         dep = circuit_deployments(torch, rcfg, device,
                                   {"c": ("c", 0)})["c"]
-        eng = StreamEngine(dep, capacity=8, device=device, adapt=adapt)
+        eng = StreamEngine(dep, capacity=ADAPT_PARITY_LANES, device=device,
+                           adapt=adapt)
         rsrc = Prerecorded(sources.resolve_dataset(
             "synthetic-gesture", hw=rcfg.backbone.input_hw[0],
-            duration_ms=rdata.duration_ms), N_LANES, 1, eng.chunk_us,
-            eng.slot_us, stream_generator)
-        rep = eng.serve(rsrc.replay(), N_LANES, seed=1)
+            duration_ms=rdata.duration_ms), ADAPT_PARITY_STREAMS, 1,
+            eng.chunk_us, eng.slot_us, stream_generator)
+        rep = eng.serve(rsrc.replay(), ADAPT_PARITY_STREAMS, seed=1)
         st = ({k: v.cpu().numpy() for k, v in eng.adapt_state.items()}
               if adapt is not None else None)
         return sorted(rep.results, key=lambda r: r.stream_id), st
@@ -2755,7 +3011,8 @@ def phase_adapt_parity(torch) -> None:
     if [r.prediction for r in off] != [r.prediction for r in frozen]:
         fail("adapt lr 0 vs frozen on the card: predictions differ")
     print(f"[adapt parity] reduced(): {int(pst['n_updates'].sum())} updates "
-          f"on 8 lanes, cuda vs cpu: dw {errs['dw']:.3g}, dtheta "
+          f"of {ADAPT_PARITY_STREAMS} streams on {ADAPT_PARITY_LANES} lanes, "
+          f"cuda vs cpu: dw {errs['dw']:.3g}, dtheta "
           f"{errs['dtheta']:.3g} of their largest (limit {ADAPT_RTOL}), "
           f"max |logit diff| {diff:.3g}; on the card lr 0 (per-lane tap-sum "
           f"fold) vs frozen (K2): max |logit diff| {gap:.3g}, predictions "
@@ -2867,8 +3124,9 @@ def phase_shard(torch, sf, dep, src, reports) -> dict:
       events/s and the fold step's host p50 beside devices=1's;
     - registry serving (circuits a, b beside c, round-robin, K2) and
       adaptive serving (surrogate, lr_w 1.0; both runs under cuDNN's
-      deterministic algorithms) over 2 shards against devices=1: every
-      stream equal, the adapted deltas bit-identical;
+      deterministic algorithms; ``SHARD_ADAPT_LANES`` of the streams on
+      as many lanes) over 2 shards against devices=1: every stream equal,
+      the adapted deltas bit-identical;
     - reduced() with 4 lanes over 4 shards (one lane each) against
       devices=1: every stream bit-identical; beside it, how far a batched
       backbone step of 16 lanes is from the same lanes in blocks of 8
@@ -2948,11 +3206,11 @@ def phase_shard(torch, sf, dep, src, reports) -> dict:
     acfg = AdaptConfig(rule="surrogate", lr_w=1.0, lr_theta=0.01)
     adapted = {}
     for ex in (None, two):
-        eng = StreamEngine(dep, capacity=N_LANES, device="cuda",
+        eng = StreamEngine(dep, capacity=SHARD_ADAPT_LANES, device="cuda",
                            executor=ex, adapt=acfg)
         zero((sf.LAUNCHES,))
         with deterministic_cudnn(torch):
-            rep = eng.serve(src.replay(), N_LANES, seed=0)
+            rep = eng.serve(src.replay(), SHARD_ADAPT_LANES, seed=0)
             torch.cuda.synchronize()
         if any(sf.LAUNCHES.values()):
             fail(f"shard adapt: launches {dict(sf.LAUNCHES)}, expected none")
@@ -2966,7 +3224,8 @@ def phase_shard(torch, sf, dep, src, reports) -> dict:
     n_upd = int(adapted[None][1]["n_updates"].sum())
     if not n_upd > 0:
         fail("shard adapt: no update applied")
-    print(f"[shard] adapt (surrogate, lr_w 1.0) on 2 shards: "
+    print(f"[shard] adapt (surrogate, lr_w 1.0), {SHARD_ADAPT_LANES} "
+          f"streams on {SHARD_ADAPT_LANES} lanes over 2 shards: "
           f"{serve_line(adapted[two][0])}; devices=1 "
           f"{serve_line(adapted[None][0])}; every stream and the {n_upd} "
           f"updates' dw, dtheta bit-identical")
@@ -3457,14 +3716,23 @@ def main() -> int:
             "launches": phys[row["name"]] + files.get(row["name"], 0),
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}})
-    # K5 by head dim (d 64 and 128 take the wgmma route, 112 and 256 the
-    # mma.sync one) and K6 by shape: launches of the serves whose prefills
-    # ran at that shape, plus training's
-    by_dim = {112: "_d112", 256: "_d256"}
-    fa_launches = {"": lm_train["flash_attention"], "_d112": 0, "_d256": 0}
-    for run in lm_runs.values():
-        fa_launches[by_dim.get(run["head_dim"], "")] += \
-            run["launches"]["flash_attention"]
+    # K5 by mask and head dim (d 64 and 128 take the wgmma route, 112 and
+    # 256 the mma.sync one), and K6 by shape: the launches each serve's
+    # counters read, on the row timed at its prefill's shape, plus
+    # training's. Non-causal launches ran at the vlm cross shape (d 128)
+    # or at the seamless encoder's (d 64, its decoder cross alike)
+    causal_row = {112: "_d112", 256: "_d256"}
+    noncausal_row = {128: "_vlm_cross", 64: "_encoder"}
+    fa_launches = {"": lm_train["flash_attention"], "_d112": 0, "_d256": 0,
+                   "_vlm_cross": 0, "_encoder": 0}
+    for arch, run in lm_runs.items():
+        hd, n = run["head_dim"], run["launches"]
+        fa_launches[causal_row.get(hd, "")] += n["flash_attention"]
+        if n["flash_attention_noncausal"]:
+            if hd not in noncausal_row:
+                fail(f"{arch}: non-causal K5 launches at head dim {hd}, "
+                     f"which no timed case has")
+            fa_launches[noncausal_row[hd]] += n["flash_attention_noncausal"]
     lm_kernels = [(fa_rows["bfloat16" + tag], "flash_attention" + tag,
                    "flash_attention.cu", "flash_attention/flash_attention.py:73",
                    n) for tag, n in fa_launches.items()]

@@ -1,9 +1,10 @@
 """LM architecture registry: ``get_config("<arch-id>")`` → LMConfig.
 
 Arch ids use the reference's dashes; module files use underscores. The
-port serves the ``dense``, ``ssm``, ``moe`` and ``hybrid`` families (and
-trains ``dense`` and ``ssm``); the two cross-attention architectures of
-the reference's registry raise ``NotImplementedError``.
+port serves every family of the reference's registry: ``dense``, ``ssm``,
+``moe``, ``hybrid`` and ``vlm`` through ``models/lm.py``, the enc-dec
+``audio`` family through ``models/encdec.py``; it trains ``dense`` and
+``ssm``.
 """
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import importlib
 
 from repro_torch.configs.base import LMConfig, smoke_variant  # noqa: F401
 
-# the architectures the port carries, by arch id, in the reference's order
+# the reference's architectures, by arch id, in its order
 ARCHS: dict[str, str] = {
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "gemma-7b": "gemma_7b",
@@ -21,28 +22,17 @@ ARCHS: dict[str, str] = {
     "zamba2-7b": "zamba2_7b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "grok-1-314b": "grok_1_314b",
-}
-# the reference's other architectures, by family: both need cross-attention
-# (``cross_attention``, ``project_q``; enc-dec also ``models/encdec.py``),
-# the next slice of ROADMAP.md queue 1, item 3
-LATER: dict[str, str] = {
-    "llama-3.2-vision-90b": "vlm",
-    "seamless-m4t-large-v2": "enc-dec",
+    "llama-3.2-vision-90b": "llama_3_2_vision_90b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
 }
 
 
 def get_config(arch: str) -> LMConfig:
-    if arch in LATER:
-        raise NotImplementedError(
-            f"{arch} (family {LATER[arch]}) is not ported yet: its "
-            f"cross-attention comes with the next slice of ROADMAP.md, "
-            f"queue 1, item 3")
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; known: {list_archs()}")
     return importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}").CONFIG
 
 
 def list_archs() -> list[str]:
-    """The reference's ten arch ids, in its order (the last two are not
-    ported yet)."""
-    return list(ARCHS) + list(LATER)
+    """The reference's ten arch ids, in its order."""
+    return list(ARCHS)

@@ -2,7 +2,9 @@
 the counterpart of ``repro.kernels.flash_attention.flash_attention``'s
 ``flash_attention_pallas``. ``ops.gqa_attention`` chooses between it and
 the plain version by the tensors' device. ``LAUNCHES`` counts kernel
-launches, one per call that reached the card.
+launches by mask, one per call that reached the card: ``flash_attention``
+causal, ``flash_attention_noncausal`` without the mask (cross and encoder
+attention).
 
 The kernel reads q ``[B, Sq, H, d]`` and k/v ``[B, Skv, KV, d]`` where
 they lie (the layout the projections produce) and indexes the kv head of
@@ -17,7 +19,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_noncausal": 0}
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
 HEAD_DIMS = (16, 32, 64, 112, 128, 256)
@@ -67,6 +69,10 @@ def gqa_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if rc:
         raise RuntimeError(f"{_ENTRY[q.dtype]} launch failed with cudaError "
                            f"{rc}")
-    LAUNCHES["flash_attention"] += 1
+    LAUNCHES[launch_key(causal)] += 1
     return out
 
+
+def launch_key(causal: bool) -> str:
+    """The ``LAUNCHES`` key a launch with this mask counts under."""
+    return "flash_attention" if causal else "flash_attention_noncausal"

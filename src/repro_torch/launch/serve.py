@@ -9,7 +9,10 @@ PyTorch).
 Each request is prefilled alone (batch 1) into a free lane of a shared
 cache; one batched decode step then advances every occupied lane at its
 own position, and finished lanes are refilled from the queue. It serves
-the dense, moe, ssm and hybrid families (``configs.ARCHS``). Prefill's
+the decoder-only families that take tokens alone (dense, moe, ssm,
+hybrid); a vlm or enc-dec ``--arch`` prints ``error: ...`` and exits 2:
+those are served through the model API (``lm.prefill(...,
+img_embed=)``, ``encdec.prefill``), as the reference serves them. Prefill's
 attention and SSD scan run the CUDA kernels on the card (the plain
 versions on the CPU); decode runs the plain attention and SSM step. The
 weights are seeded, not trained.
@@ -41,6 +44,22 @@ class Request:
     done: bool = False
 
 
+def check_slot_servable(cfg) -> None:
+    """Raise ``NotImplementedError`` for a config ``SlotServer`` cannot
+    serve: its requests are token prompts alone, so a vlm (image
+    embeddings) or enc-dec (frames) config is refused, as the reference's
+    server cannot serve them either."""
+    if cfg.is_encdec or cfg.family == "vlm":
+        entry = ("encdec.prefill(params, frames, tokens, cfg)"
+                 if cfg.is_encdec else
+                 "lm.prefill(params, tokens, cfg, img_embed=)")
+        raise NotImplementedError(
+            f"{cfg.name}: SlotServer serves the decoder-only families that "
+            f"take token prompts alone (dense, moe, ssm, hybrid); serve "
+            f"family {cfg.family!r} through {entry} and decode_step")
+    lm.check_servable(cfg)
+
+
 class SlotServer:
     """Fixed-batch continuous decoding over a shared cache.
 
@@ -52,6 +71,7 @@ class SlotServer:
 
     def __init__(self, cfg, batch: int, max_len: int,
                  device: str | torch.device | None = None):
+        check_slot_servable(cfg)
         self.cfg = serve_config(cfg)
         self.device = resolve_device(device)
         self.batch = batch
@@ -154,6 +174,11 @@ def main(argv: list[str] | None = None) -> int:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
+    try:
+        check_slot_servable(cfg)
+    except NotImplementedError as e:
+        print(f"error: {e.args[0]}", file=sys.stderr)
+        return 2
     if args.smoke:
         cfg = smoke_variant(cfg)
     dev = resolve_device(args.device)

@@ -11,8 +11,8 @@ runs end to end; a rerun with the same ``--ckpt-dir`` resumes from its
 newest checkpoint (by default the run's last step is one). Without
 ``--smoke`` the shape is ``--shape`` from ``SHAPES``. The port trains
 the ``dense`` (without qk-norm or GeGLU) and ``ssm`` families on one
-device; the other architectures (``lm.check_trainable``: the moe and
-hybrid families, qk-norm and GeGLU, and ``configs.LATER``),
+device; the other architectures (``lm.check_trainable``: the moe,
+hybrid, vlm and enc-dec families, qk-norm and GeGLU),
 ``--production-mesh`` and ``--multi-pod`` (sharding) print
 ``error: ...`` and exit 2.
 """

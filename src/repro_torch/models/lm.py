@@ -6,25 +6,30 @@
   ssm    — mamba2 (attention-free Mamba-2 blocks)
   hybrid — zamba2 (groups of Mamba-2 blocks, one *shared* attention+MLP
            block after each group)
+  vlm    — llama-3.2-vision (groups of k - 1 dense blocks and one
+           cross-attention block onto the image embeddings)
 
-All four are served (``init_params``, ``params_from_jax``,
+All five are served (``init_params``, ``params_from_jax``,
 ``init_cache``, ``prefill``, ``decode_step``); ``dense`` without qk-norm
 or GeGLU and ``ssm`` are also trained (``forward``, ``backbone``,
-``loss_fn``). The cross-attention families (vlm, enc-dec) raise
-``NotImplementedError``, as do the families that are served but not
-trained when training is asked of them.
+``loss_fn``). The encoder-decoder family is ``models/encdec.py``'s (it
+reuses these blocks); here it raises ``NotImplementedError``, as do the
+families that are served but not trained when training is asked of them.
 
 Params keep the reference's tree: ``embed``, ``final_norm`` and
 ``blocks`` with every leaf stacked ``[n_layers, ...]`` (hybrid:
-``[n_groups, k, ...]`` plus one unstacked ``shared`` block); layers run
-in a Python loop over views of the stacks. Training (``forward``,
+``[n_groups, k, ...]`` plus one unstacked ``shared`` block; vlm:
+``[n_groups, k - 1, ...]`` plus ``cross_blocks`` ``[n_groups, ...]``);
+layers run in a Python loop over views of the stacks. Training (``forward``,
 ``loss_fn``) runs each block under ``cfg.remat`` (``_maybe_remat``), the
 attention through the plain ``attention_core`` and the SSD scan through
 ``nn/ssm.ssm_block_apply`` (K6's forward on the card). Prefill's causal
-self-attention goes through ``kernels/flash_attention/ops.gqa_attention``
+self-attention and the vlm prefill's non-causal attention onto the
+image tokens go through ``kernels/flash_attention/ops.gqa_attention``
 and the SSM prefill's scan through ``kernels/ssd/ops.ssd`` (the CUDA
 kernels on the card); decode stays on the plain ``attention_core`` and
-SSM step, as in the reference. Decode updates the cache in place.
+SSM step, as in the reference. Decode updates the self-attention and SSM
+caches in place and only reads the cross-attention cache.
 
 API:
   init_params(gen, cfg, device)              → params
@@ -33,7 +38,8 @@ API:
   loss_fn(params, batch, cfg)                → (loss, {"ce", "lb"})
   init_cache(cfg, batch, max_len, device=)   → cache
   cache_batch_axes(cfg)                      → each cache leaf's batch axis
-  prefill(params, tokens, cfg, max_len=)     → (last_logits, cache)
+  prefill(params, tokens, cfg, img_embed=, max_len=)
+                                             → (last_logits, cache)
   decode_step(params, token, pos, cache, cfg)→ (logits, cache)
 """
 from __future__ import annotations
@@ -54,29 +60,40 @@ from repro_torch.nn import ssm as ssm_mod
 from repro_torch.utils import tree_map
 
 Params = dict
-SERVED = ("dense", "ssm", "moe", "hybrid")
+SERVED = ("dense", "ssm", "moe", "hybrid", "vlm")
 TRAINED = ("dense", "ssm")
 
 
 def check_servable(cfg: LMConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port cannot serve."""
-    if cfg.family not in SERVED or cfg.is_encdec or cfg.cross_every:
+    """Raise ``NotImplementedError`` for a config this module cannot
+    serve: an encoder-decoder (``models/encdec.py`` serves it) or an
+    unknown family."""
+    if cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (the port "
-            f"serves {SERVED}; vlm and enc-dec need cross-attention, the "
-            f"next slice of ROADMAP.md, queue 1, item 3)")
+            f"{cfg.name}: an encoder-decoder config is served by "
+            f"models/encdec.py (encdec.prefill, encdec.decode_step), not "
+            f"by models/lm.py")
+    if cfg.family not in SERVED:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not a decoder family "
+            f"of models/lm.py (it serves {SERVED})")
 
 
 def check_trainable(cfg: LMConfig) -> None:
     """Raise ``NotImplementedError`` for a config the port cannot train:
     all but ``dense`` (without qk-norm or GeGLU) and ``ssm``."""
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: training the enc-dec family is not ported yet "
+            f"(models/encdec.py serves it; its training is a later slice "
+            f"of ROADMAP.md, queue 1)")
     check_servable(cfg)
     if cfg.family not in TRAINED or cfg.n_experts:
         raise NotImplementedError(
             f"{cfg.name}: training the {cfg.family!r} family is not ported "
-            f"yet (the port trains {TRAINED}; MoE and hybrid training, with "
-            f"MoE's load-balance loss, are a later slice of ROADMAP.md, "
-            f"queue 1)")
+            f"yet (the port trains {TRAINED}; MoE, hybrid and vlm training, "
+            f"with MoE's load-balance loss, are a later slice of "
+            f"ROADMAP.md, queue 1)")
     if cfg.qk_norm or cfg.act != "silu":
         raise NotImplementedError(
             f"{cfg.name}: training with qk-norm or GeGLU is not ported yet "
@@ -110,8 +127,19 @@ def _ssm_block_init(gen, cfg: LMConfig, lead: tuple) -> Params:
             "ssm": ssm_mod.ssm_init(gen, cfg, lead)}
 
 
+def _cross_block_init(gen, cfg: LMConfig, lead: tuple) -> Params:
+    pd = L.pdt(cfg)
+    return {"ln1": L.rmsnorm_init(gen, cfg.d_model, pd, lead),
+            "xattn": L.attn_init(gen, cfg, lead, cross=True),
+            "ln2": L.rmsnorm_init(gen, cfg.d_model, pd, lead),
+            "mlp": L.mlp_init(gen, cfg, lead)}
+
+
 def _groups(cfg: LMConfig) -> tuple[int, int]:
-    """hybrid: (groups, SSM blocks a group)."""
+    """hybrid: (groups, SSM blocks a group); vlm: (groups, dense blocks a
+    group), each group ending in its cross-attention block."""
+    if cfg.family == "vlm":
+        return cfg.n_layers // cfg.cross_every, cfg.cross_every - 1
     return cfg.n_layers // cfg.attn_every, cfg.attn_every
 
 
@@ -126,9 +154,13 @@ def _init(gen: torch.Generator | None, cfg: LMConfig) -> Params:
         params["blocks"] = _dense_block_init(gen, cfg, (cfg.n_layers,))
     elif cfg.family == "ssm":
         params["blocks"] = _ssm_block_init(gen, cfg, (cfg.n_layers,))
-    else:
+    elif cfg.family == "hybrid":
         params["blocks"] = _ssm_block_init(gen, cfg, _groups(cfg))
         params["shared"] = _dense_block_init(gen, cfg, ())
+    else:
+        params["blocks"] = _dense_block_init(gen, cfg, _groups(cfg))
+        params["cross_blocks"] = _cross_block_init(gen, cfg,
+                                                   _groups(cfg)[:1])
     return params
 
 
@@ -145,8 +177,15 @@ def params_from_jax(tree: dict, cfg: LMConfig,
     """The reference's ``lm.init_params`` tree (numpy leaves; bfloat16
     given as float32 values) as the port's tree: same names, same stacked
     layout, each leaf in the dtype the port allocates for it."""
+    return tree_like(tree, _init(None, cfg), device)
+
+
+def tree_like(tree: dict, skeleton: Params,
+              device: str | torch.device | None = None) -> Params:
+    """``tree`` (numpy leaves) as tensors on ``device`` with the names,
+    shapes and dtypes of ``skeleton`` (a ``meta`` tree); raises on a key
+    or shape that differs."""
     dev = resolve_device(device)
-    skeleton = _init(None, cfg)
 
     def convert(ref, path):
         if isinstance(ref, dict):
@@ -174,21 +213,29 @@ def params_from_jax(tree: dict, cfg: LMConfig,
 # cache
 # ---------------------------------------------------------------------------
 
+def attn_cache(cfg: LMConfig, lead: tuple, batch: int, length: int, dtype,
+               dev: torch.device) -> dict:
+    """``{"k", "v"}`` zeros ``lead + [batch, length, KV, hd]``."""
+    shape = lead + (batch, length, cfg.phys_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
 def _cache(cfg: LMConfig, batch: int, max_len: int, dtype,
            dev: torch.device) -> dict:
-    def attn(n):
-        shape = (n, batch, max_len, cfg.phys_kv_heads, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                "v": torch.zeros(shape, dtype=dtype, device=dev)}
-
     if cfg.family in ("dense", "moe"):
-        return attn(cfg.n_layers)
+        return attn_cache(cfg, (cfg.n_layers,), batch, max_len, dtype, dev)
     if cfg.family == "ssm":
         return ssm_mod.ssm_init_cache(cfg, batch, dtype, dev, (cfg.n_layers,))
     n_groups, k_blocks = _groups(cfg)
+    if cfg.family == "vlm":
+        return {"self": attn_cache(cfg, (n_groups, k_blocks), batch, max_len,
+                                   dtype, dev),
+                "cross": attn_cache(cfg, (n_groups,), batch,
+                                    cfg.n_image_tokens, dtype, dev)}
     return {"ssm": ssm_mod.ssm_init_cache(cfg, batch, dtype, dev,
                                           (n_groups, k_blocks)),
-            "attn": attn(n_groups)}
+            "attn": attn_cache(cfg, (n_groups,), batch, max_len, dtype, dev)}
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
@@ -196,7 +243,9 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
     """dense/moe: ``{"k", "v"}`` ``[n_layers, B, max_len, KV, hd]``; ssm:
     ``{"conv_x", "conv_bc", "state"}`` ``[n_layers, B, ...]``; hybrid:
     ``{"ssm": {...} [n_groups, k, B, ...], "attn": {"k", "v"} [n_groups,
-    B, max_len, KV, hd]}``."""
+    B, max_len, KV, hd]}``; vlm: ``{"self": {"k", "v"} [n_groups, k - 1,
+    B, max_len, KV, hd], "cross": {"k", "v"} [n_groups, B,
+    n_image_tokens, KV, hd]}``."""
     check_servable(cfg)
     return _cache(cfg, batch, max_len, dtype or L.cdt(cfg),
                   resolve_device(device))
@@ -204,7 +253,8 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
 
 def cache_batch_axes(cfg: LMConfig) -> dict:
     """The cache's tree with each leaf's batch axis (1, or 2 for a hybrid
-    SSM leaf), read off the shapes ``init_cache`` gives at batch 1 and 2."""
+    SSM leaf and a vlm self-attention leaf), read off the shapes
+    ``init_cache`` gives at batch 1 and 2."""
     check_servable(cfg)
     one, two = (_cache(cfg, b, 1, L.cdt(cfg), torch.device("meta"))
                 for b in (1, 2))
@@ -347,6 +397,17 @@ def _attn_block_decode(bp: Params, h: torch.Tensor, ck: torch.Tensor,
     return h + _ffn(bp, L.rmsnorm(h, bp["ln2"], cfg.norm_eps), cfg)
 
 
+def _cross_block_decode(bp: Params, h: torch.Tensor, ck: torch.Tensor,
+                        cv: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    """A cross-attention block's step over its cache (filled at prefill,
+    only read here): the query alone through the plain ``attention_core``
+    onto every cached key."""
+    h = h + L.cached_cross_attention(
+        bp["xattn"], L.rmsnorm(h, bp["ln1"], cfg.norm_eps), ck, cv, cfg)
+    return h + L.mlp_apply(bp["mlp"], L.rmsnorm(h, bp["ln2"], cfg.norm_eps),
+                           cfg)
+
+
 def _ssm_block_decode(bp: Params, h: torch.Tensor, c: dict, cfg: LMConfig
                       ) -> torch.Tensor:
     """One SSM block's step; ``c`` holds views of its cache, written."""
@@ -372,7 +433,7 @@ def decode_step(params: Params, token: torch.Tensor, pos: torch.Tensor,
         for i in range(cfg.n_layers):
             h = _ssm_block_decode(_layer(blocks, i), h,
                                   {k: v[i] for k, v in cache.items()}, cfg)
-    else:
+    elif cfg.family == "hybrid":
         n_groups, k_blocks = _groups(cfg)
         for g in range(n_groups):
             for j in range(k_blocks):
@@ -382,6 +443,15 @@ def decode_step(params: Params, token: torch.Tensor, pos: torch.Tensor,
             h = _attn_block_decode(params["shared"], h,
                                    cache["attn"]["k"][g],
                                    cache["attn"]["v"][g], pos, cfg)
+    else:
+        n_groups, k_blocks = _groups(cfg)
+        sc, xc = cache["self"], cache["cross"]
+        for g in range(n_groups):
+            for j in range(k_blocks):
+                h = _attn_block_decode(_layer(blocks, (g, j)), h,
+                                       sc["k"][g, j], sc["v"][g, j], pos, cfg)
+            h = _cross_block_decode(_layer(params["cross_blocks"], g), h,
+                                    xc["k"][g], xc["v"][g], cfg)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return L.unembed_apply(params["embed"], h, cfg), cache
 
@@ -390,16 +460,50 @@ def decode_step(params: Params, token: torch.Tensor, pos: torch.Tensor,
 # prefill — build the cache for a prompt, return last-token logits
 # ---------------------------------------------------------------------------
 
+def self_attn_prefill(p: Params, x: torch.Tensor, cfg: LMConfig,
+                      positions: torch.Tensor, causal: bool = True
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Self-attention of the normed x through K5: (output, k, v), k and v
+    for the cache."""
+    q, k, v = L.project_qkv(p, x, x, cfg, positions, positions)
+    o = gqa_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk)
+    return L.attn_out(p, o, cfg), k, v
+
+
+def cross_attn_prefill(p: Params, x: torch.Tensor, memory: torch.Tensor,
+                       cfg: LMConfig
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Attention of the normed x onto ``memory`` (image embeddings or
+    encoder states) through K5 without the causal mask or rope: (output,
+    k, v), k and v for the cross cache."""
+    q, k, v = L.project_qkv(p, x, memory, cfg, None, None, use_rope=False)
+    o = gqa_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    return L.attn_out(p, o, cfg), k, v
+
+
 def _attn_block_prefill(bp: Params, h: torch.Tensor, cfg: LMConfig,
                         positions: torch.Tensor
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """A self-attention block through K5 that also returns its k and v
     for the cache."""
-    xn = L.rmsnorm(h, bp["ln1"], cfg.norm_eps)
-    q, k, v = L.project_qkv(bp["attn"], xn, xn, cfg, positions, positions)
-    o = gqa_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
-    h = h + L.attn_out(bp["attn"], o, cfg)
+    a, k, v = self_attn_prefill(bp["attn"], L.rmsnorm(h, bp["ln1"],
+                                                      cfg.norm_eps),
+                                cfg, positions)
+    h = h + a
     return h + _ffn(bp, L.rmsnorm(h, bp["ln2"], cfg.norm_eps), cfg), k, v
+
+
+def _cross_block_prefill(bp: Params, h: torch.Tensor, memory: torch.Tensor,
+                         cfg: LMConfig
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A vlm cross-attention block onto the image embeddings; returns its
+    k and v for the cross cache."""
+    a, k, v = cross_attn_prefill(bp["xattn"], L.rmsnorm(h, bp["ln1"],
+                                                        cfg.norm_eps),
+                                 memory, cfg)
+    h = h + a
+    y = L.mlp_apply(bp["mlp"], L.rmsnorm(h, bp["ln2"], cfg.norm_eps), cfg)
+    return h + y, k, v
 
 
 def _ssm_block_prefill(bp: Params, h: torch.Tensor, c: dict, cfg: LMConfig
@@ -414,10 +518,14 @@ def _ssm_block_prefill(bp: Params, h: torch.Tensor, c: dict, cfg: LMConfig
 
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: LMConfig,
+            img_embed: torch.Tensor | None = None,
             max_len: int | None = None) -> tuple[torch.Tensor, dict]:
     """tokens [B, S] → (last logits [B, Vp], cache with S entries of
-    ``max_len`` positions)."""
+    ``max_len`` positions). vlm needs ``img_embed`` [B, n_image_tokens,
+    vision_dim], whose k and v fill the cross cache."""
     check_servable(cfg)
+    if cfg.family == "vlm" and img_embed is None:
+        raise ValueError(f"{cfg.name}: vlm prefill needs img_embed")
     B, S = tokens.shape
     max_len = max_len or S
     h = L.embed_apply(params["embed"], tokens, cfg)
@@ -434,7 +542,7 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: LMConfig,
         for i in range(cfg.n_layers):
             h = _ssm_block_prefill(_layer(blocks, i), h,
                                    {k: v[i] for k, v in cache.items()}, cfg)
-    else:
+    elif cfg.family == "hybrid":
         n_groups, k_blocks = _groups(cfg)
         for g in range(n_groups):
             for j in range(k_blocks):
@@ -445,5 +553,18 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: LMConfig,
                                           positions)
             cache["attn"]["k"][g, :, :S] = k
             cache["attn"]["v"][g, :, :S] = v
+    else:
+        n_groups, k_blocks = _groups(cfg)
+        sc, xc = cache["self"], cache["cross"]
+        for g in range(n_groups):
+            for j in range(k_blocks):
+                h, k, v = _attn_block_prefill(_layer(blocks, (g, j)), h, cfg,
+                                              positions)
+                sc["k"][g, j, :, :S] = k
+                sc["v"][g, j, :, :S] = v
+            h, k, v = _cross_block_prefill(_layer(params["cross_blocks"], g),
+                                           h, img_embed, cfg)
+            xc["k"][g] = k
+            xc["v"][g] = v
     h = L.rmsnorm(h[:, -1:, :], params["final_norm"], cfg.norm_eps)
     return L.unembed_apply(params["embed"], h, cfg)[:, 0], cache

@@ -101,15 +101,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # attention
 # ---------------------------------------------------------------------------
 
-def attn_init(gen, cfg: LMConfig, lead: tuple = ()) -> Params:
+def attn_init(gen, cfg: LMConfig, lead: tuple = (), *,
+              cross: bool = False) -> Params:
+    """Q, K, V and output projections. A vlm cross-attention block
+    (``cross``) projects K and V from the ``vision_dim`` image embeddings;
+    every other block from ``d_model``."""
     D, hd = cfg.d_model, cfg.head_dim
     H, KV = cfg.phys_heads, cfg.phys_kv_heads
     s = 1.0 / math.sqrt(D)
     dt = pdt(cfg)
+    kv_in = (cfg.vision_dim if cross and cfg.vision_dim
+             and cfg.family == "vlm" else D)
     p = {
         "wq": _normal(gen, lead + (D, H * hd), s, dt),
-        "wk": _normal(gen, lead + (D, KV * hd), s, dt),
-        "wv": _normal(gen, lead + (D, KV * hd), s, dt),
+        "wk": _normal(gen, lead + (kv_in, KV * hd), s, dt),
+        "wv": _normal(gen, lead + (kv_in, KV * hd), s, dt),
         "wo": _normal(gen, lead + (H * hd, D), s / math.sqrt(2 * cfg.n_layers),
                       dt),
     }
@@ -120,22 +126,40 @@ def attn_init(gen, cfg: LMConfig, lead: tuple = ()) -> Params:
 
 
 def project_qkv(p: Params, x: torch.Tensor, kv_src: torch.Tensor,
-                cfg: LMConfig, positions: torch.Tensor,
-                kv_positions: torch.Tensor):
-    """Project, normalise q and k per head (qk-norm configs) and rotate.
-    Returns q [B,S,H,hd], k/v [B,Skv,KV,hd]."""
-    H, KV, hd = cfg.phys_heads, cfg.phys_kv_heads, cfg.head_dim
+                cfg: LMConfig, positions: torch.Tensor | None,
+                kv_positions: torch.Tensor | None, *,
+                use_rope: bool = True):
+    """Project, normalise q and k per head (qk-norm configs) and, with
+    ``use_rope``, rotate (positions ``None``: ``arange``). Returns q
+    [B,S,H,hd], k/v [B,Skv,KV,hd]."""
+    KV, hd = cfg.phys_kv_heads, cfg.head_dim
     dt = cdt(cfg)
-    B, S = x.shape[0], x.shape[1]
-    Skv = kv_src.shape[1]
-    q = (x.to(dt) @ p["wq"].to(dt)).reshape(B, S, H, hd)
+    B, Skv = kv_src.shape[0], kv_src.shape[1]
+    q = project_q(p, x, cfg)
     k = (kv_src.to(dt) @ p["wk"].to(dt)).reshape(B, Skv, KV, hd)
     v = (kv_src.to(dt) @ p["wv"].to(dt)).reshape(B, Skv, KV, hd)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    return (apply_rope(q, positions, cfg.rope_theta),
-            apply_rope(k, kv_positions, cfg.rope_theta), v)
+    if use_rope:
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        if kv_positions is None:
+            kv_positions = torch.arange(Skv, device=x.device)[None, :]
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, kv_positions, cfg.rope_theta)
+    return q, k, v
+
+
+def project_q(p: Params, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    """The query projection alone (qk-norm'd, not rotated): decode over a
+    cross-attention cache filled at prefill."""
+    H, hd = cfg.phys_heads, cfg.head_dim
+    dt = cdt(cfg)
+    B, S = x.shape[0], x.shape[1]
+    q = (x.to(dt) @ p["wq"].to(dt)).reshape(B, S, H, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+    return q
 
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -214,10 +238,18 @@ def self_attention(p: Params, x: torch.Tensor, cfg: LMConfig, *,
                    positions: torch.Tensor | None = None) -> torch.Tensor:
     """Training-path self-attention through the plain ``attention_core``
     (the reference trains through it too; K5 is forward-only)."""
-    if positions is None:
-        positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q, k, v = project_qkv(p, x, x, cfg, positions, positions)
     o = attention_core(q, k, v, causal=causal, chunk=cfg.attn_chunk)
+    return attn_out(p, o, cfg)
+
+
+def cross_attention(p: Params, x: torch.Tensor, memory: torch.Tensor,
+                    cfg: LMConfig) -> torch.Tensor:
+    """Attention of x [B, S, D] onto ``memory`` [B, Sm, D_mem] (image
+    embeddings or encoder states), unmasked and unrotated, through the
+    plain ``attention_core``."""
+    q, k, v = project_qkv(p, x, memory, cfg, None, None, use_rope=False)
+    o = attention_core(q, k, v, causal=False, chunk=cfg.attn_chunk)
     return attn_out(p, o, cfg)
 
 
@@ -238,6 +270,18 @@ def decode_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
     o = attention_core(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
                        causal=False, chunk=cfg.attn_chunk, q_offset=pos,
                        kv_len=pos + 1)
+    return attn_out(p, o, cfg)
+
+
+def cached_cross_attention(p: Params, x: torch.Tensor, cache_k: torch.Tensor,
+                           cache_v: torch.Tensor, cfg: LMConfig
+                           ) -> torch.Tensor:
+    """Decode-path cross-attention: the query of x [B, 1, D] alone
+    (``project_q``) onto every key of a cross cache [B, Sm, KV, hd]
+    filled at prefill, which is only read."""
+    q = project_q(p, x, cfg)
+    o = attention_core(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
+                       causal=False, chunk=cfg.attn_chunk)
     return attn_out(p, o, cfg)
 
 

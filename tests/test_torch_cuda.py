@@ -1,7 +1,8 @@
 """PyTorch port: the CUDA kernels (streaming fold, P²M conv, LIF, flash
 attention, SSD) against their plain versions, on the card, the LM
 training path around K6 (``ssd_trainable``, remat, the donated step) and
-the served LM families' smoke variants on the card against the CPU.
+the served LM families' smoke variants (the cross-attention ones through
+the model API) on the card against the CPU.
 Imports no JAX, so it runs on the machine with the card:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 Without a GPU every test here skips."""
@@ -483,9 +484,9 @@ def _check_gqa(q, k, v, causal, kv_len):
     from repro_torch.kernels.flash_attention.ops import gqa_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
     B, Sq, H, d = q.shape
-    n = fa.LAUNCHES["flash_attention"]
+    before, key = dict(fa.LAUNCHES), fa.launch_key(causal)
     got = gqa_attention(q, k, v, causal=causal, kv_len=kv_len)
-    assert fa.LAUNCHES["flash_attention"] == n + 1
+    assert fa.LAUNCHES == {**before, key: before[key] + 1}
     assert got.dtype == q.dtype and got.shape == q.shape
     bh = [t.float().repeat_interleave(H // t.shape[2], dim=2).transpose(1, 2)
           .reshape(B * H, t.shape[1], d) for t in (q, k, v)]
@@ -556,10 +557,31 @@ def test_cuda_flash_attention_wide_heads(cuda_device, dtype, B, sq, skv, H,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,sq,skv,H,KV,d", [
+    (1, 2048, 1601, 64, 16, 128),    # llama-3.2-vision's cross-attention
+    (1, 2048, 2048, 16, 16, 64),     # seamless-m4t's encoder
+    (1, 2048, 1000, 16, 16, 64),     # its decoder onto 1000 frames
+    (2, 100, 161, 8, 2, 128),        # B 2, a ragged last kv tile
+    (2, 100, 161, 8, 2, 64),
+    (2, 300, 1601, 8, 2, 128),       # B 2 at the image token count
+])
+def test_cuda_flash_attention_cross_shapes(cuda_device, dtype, B, sq, skv,
+                                           H, KV, d):
+    """Without the causal mask, q onto a key sequence of another length
+    (the vlm and enc-dec prefills' cross and encoder attention). Skv 1601
+    = 12 x 128 + 65 leaves the last kv tile ragged; at B 2 a key read
+    past Skv would come from the next batch's keys."""
+    q, k, v = _qkv(d + skv + B, [(B, sq, H, d), (B, skv, KV, d),
+                                 (B, skv, KV, d)], dtype, cuda_device)
+    _check_gqa(q, k, v, False, None)
+
+
+@pytest.mark.cuda
 def test_cuda_flash_attention_rejects_bad_inputs(cuda_device):
     from repro_torch.kernels.flash_attention import flash_attention as fa
     q = torch.zeros((1, 8, 2, 16), device=cuda_device)
-    n = fa.LAUNCHES["flash_attention"]
+    n = dict(fa.LAUNCHES)
     with pytest.raises(TypeError):
         fa.gqa_attention_cuda(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="CUDA"):
@@ -573,7 +595,7 @@ def test_cuda_flash_attention_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="aligned"):
         off = torch.zeros(q.numel() + 1, device=cuda_device)[1:].view(q.shape)
         fa.gqa_attention_cuda(off, q, q)
-    assert fa.LAUNCHES["flash_attention"] == n
+    assert fa.LAUNCHES == n
 
 
 # ---------------------------------------------------------------------------
@@ -815,17 +837,75 @@ def test_cuda_lm_serving_matches_cpu(cuda_device, arch):
         server = SlotServer(cfg, 2, 200, device=device)
         server.load(tree_map(lambda t: t.to(device), params))
         reqs = [Request(i, p, max_new=6) for i, p in enumerate(prompts)]
-        n = fa.LAUNCHES["flash_attention"]
+        n = dict(fa.LAUNCHES)
         serve(server, reqs)
         out[device] = [r.generated for r in reqs]
         if device == "cuda":
             calls = cfg.n_layers // (cfg.attn_every or 1)
-            assert fa.LAUNCHES["flash_attention"] - n == 5 * calls
+            assert fa.LAUNCHES == {
+                **n, "flash_attention": n["flash_attention"] + 5 * calls}
     assert out["cuda"] == out["cpu"]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b",
+                                  "seamless-m4t-large-v2"])
+def test_cuda_cross_attention_serving_matches_cpu(cuda_device, arch):
+    """The vlm (two groups) and enc-dec smoke variants through the model
+    API on the card (every prefill attention through K5: self causal,
+    cross and encoder without the mask) and on the CPU from the same
+    weights, images or frames and prompts, float32 compute: last logits
+    and three greedy decode steps' logits within 1e-4, the same tokens."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models import encdec, lm
+    from repro_torch.serve.steps import serve_config
+    from repro_torch.utils import tree_map
+    cfg = replace(smoke_variant(get_config(arch)), compute_dtype="float32")
+    if not cfg.is_encdec:
+        cfg = replace(cfg, n_layers=4)
+    mod = encdec if cfg.is_encdec else lm
+    params = mod.init_params(torch.Generator().manual_seed(0),
+                             serve_config(cfg), "cpu")
+    gen = torch.Generator().manual_seed(6)
+    B, S = 3, 37
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+    src = (torch.randn((B, 29, cfg.d_model), generator=gen) if cfg.is_encdec
+           else torch.randn((B, cfg.n_image_tokens, cfg.vision_dim),
+                            generator=gen))
+    out = {}
+    for device in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(device), params)
+        n = dict(fa.LAUNCHES)
+        if cfg.is_encdec:
+            last, cache = encdec.prefill(p, src.to(device), tokens.to(device),
+                                         cfg, max_len=S + 4)
+            causal = cfg.n_layers
+            cross = cfg.encoder_layers + cfg.n_layers
+        else:
+            last, cache = lm.prefill(p, tokens.to(device), cfg,
+                                     img_embed=src.to(device), max_len=S + 4)
+            cross = cfg.n_layers // cfg.cross_every
+            causal = cfg.n_layers - cross
+        if device == "cuda":
+            assert fa.LAUNCHES == {
+                "flash_attention": n["flash_attention"] + causal,
+                "flash_attention_noncausal":
+                    n["flash_attention_noncausal"] + cross}
+        logits, toks = [last.cpu()], []
+        for i in range(3):
+            toks.append(logits[-1].argmax(-1))
+            step, cache = mod.decode_step(p, toks[-1][:, None].to(device),
+                                          torch.tensor(S + i, device=device),
+                                          cache, cfg)
+            logits.append(step[:, 0].cpu())
+        out[device] = (torch.stack(logits), torch.stack(toks))
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    assert (out["cuda"][0] - out["cpu"][0]).abs().max().item() <= 1e-4
+
+
 # ---------------------------------------------------------------------------
-# the co-design sweep and deploying from it# ---------------------------------------------------------------------------
 # the co-design sweep and deploying from it
 # ---------------------------------------------------------------------------
 

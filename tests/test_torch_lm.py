@@ -36,9 +36,11 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ["internlm2-1.8b", "mamba2-780m"]
 # every architecture the port carries (tests/test_torch_lm_families.py
-# holds the other six's models to the reference)
+# and tests/test_torch_lm_cross.py hold the other eight's models to the
+# reference)
 PORTED = ARCHS + ["phi4-mini-3.8b", "gemma-7b", "qwen3-32b", "zamba2-7b",
-                  "granite-moe-1b-a400m", "grok-1-314b"]
+                  "granite-moe-1b-a400m", "grok-1-314b",
+                  "llama-3.2-vision-90b", "seamless-m4t-large-v2"]
 ATOL = 2e-4            # prefill/decode vs the reference (tests/test_models.py)
 
 
@@ -101,23 +103,25 @@ def test_configs_match_the_reference(arch):
 
 
 def test_other_architectures_are_refused():
-    """The two cross-attention architectures (vlm, enc-dec) are the next
-    slice: get_config, init_params and SlotServer refuse them."""
+    """Every reference arch has a config; an unknown one raises KeyError.
+    The slot server serves token prompts alone, so it refuses the vlm and
+    enc-dec configs (their entry points are lm.prefill(..., img_embed=)
+    and models/encdec.py); lm refuses an enc-dec config and names
+    models/encdec.py."""
     from repro_torch.configs import list_archs
     from repro.configs import list_archs as j_list_archs
     assert list_archs() == j_list_archs()
-    for arch in ("llama-3.2-vision-90b", "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_config(arch)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    vlm = dataclasses.replace(smoke_variant(get_config("internlm2-1.8b")),
-                              family="vlm", cross_every=2)
-    with pytest.raises(NotImplementedError, match="family 'vlm'"):
-        lm.init_params(torch.Generator(), vlm, device="cpu")
     from repro_torch.launch.serve import SlotServer
-    with pytest.raises(NotImplementedError, match="next slice"):
-        SlotServer(vlm, batch=2, max_len=16, device="cpu")
+    for arch in ("llama-3.2-vision-90b", "seamless-m4t-large-v2"):
+        with pytest.raises(NotImplementedError, match="SlotServer"):
+            SlotServer(smoke_variant(get_config(arch)), batch=2, max_len=16,
+                       device="cpu")
+    with pytest.raises(NotImplementedError, match="models/encdec.py"):
+        lm.init_params(torch.Generator(),
+                       smoke_variant(get_config("seamless-m4t-large-v2")),
+                       device="cpu")
 
 
 # ---------------------------------------------------------------------------
