@@ -143,17 +143,25 @@ no ``ok`` line):
                 the CPU from the same weights and prompts (and images or
                 frames; float32 compute): the same generated tokens;
  10. lm train — LM training at full published width through
-                ``train.loop.run`` (``phase_lm_train``): mamba2-780m (4
-                steps, batch 8 x 2048, K6 through ssd_trainable, 2 launches
-                a layer a step under remat="full") and internlm2-1.8b (3
-                steps, batch 4 x 2048, no kernel; donated update, peak
-                under LM_TRAIN_PEAK_GB), fresh seeded params on the card,
-                counters set to 0 before and read after each run: step ms,
-                tokens/s, peak memory, loss and gnorm per step; then both
-                smoke variants for 3 steps on cuda against the CPU, float32
-                and bf16 compute; ssd_trainable against ssd_chunked at a
-                full-width layer's scan; a restart from an async checkpoint
-                on the card; launch/train.py's exit codes.
+                ``train.loop.run`` (``phase_lm_train``, ``LM_TRAIN``):
+                mamba2-780m (4 steps, batch 8 x 2048, K6 through
+                ssd_trainable, 2 launches a layer a step under
+                remat="full"), internlm2-1.8b (3 steps, batch 4 x 2048, no
+                kernel), granite-moe-1b-a400m (all 24 layers, 3 steps,
+                batch 4 x 2048, capacity factor 1.25 with drops, no
+                kernel) and zamba2-7b (3 of its 9 groups, 27 SSM blocks and
+                the shared block, ``LM_TRAIN_DEPTH``; 3 steps, batch 4 x
+                2048, K6 2 launches a block a step), fresh seeded params on
+                the card, counters set to 0 before and read after each run:
+                step ms, tokens/s, peak memory (under LM_TRAIN_PEAK_GB),
+                loss, gnorm, ce and lb per step, MoE's drop share, one step
+                under torch.profiler; grok-1-314b's training state
+                reckoned against the card; then the five trained smoke
+                variants (``LM_TRAINED``) for 3 steps on cuda against the
+                CPU, float32 and bf16 compute; ssd_trainable against
+                ssd_chunked at a mamba2-780m and a zamba2-7b training
+                layer's scan; a restart from an async checkpoint on the
+                card; launch/train.py's exit codes.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -200,10 +208,13 @@ BF16_TC_FLOPS = 989e12
 # held per element, see fa_limit); K6 relative error
 FA_ATOL = 2e-3
 SSD_RTOL = 1e-3
-# the served LM architectures; the first two are also trained ([lm train])
-LM_TRAINED = ("internlm2-1.8b", "mamba2-780m")
-LM_ARCHS = LM_TRAINED + ("phi4-mini-3.8b", "gemma-7b", "qwen3-32b",
-                         "granite-moe-1b-a400m", "grok-1-314b", "zamba2-7b")
+# the LM architectures served through the slot server, each once in a
+# fixed order, and those also trained ([lm train parity] at their smoke
+# variants; [lm train] at full width, LM_TRAIN)
+LM_ARCHS = ("internlm2-1.8b", "mamba2-780m", "phi4-mini-3.8b", "gemma-7b",
+            "qwen3-32b", "granite-moe-1b-a400m", "grok-1-314b", "zamba2-7b")
+LM_TRAINED = ("internlm2-1.8b", "mamba2-780m", "granite-moe-1b-a400m",
+              "grok-1-314b", "zamba2-7b")
 # the cross-attention architectures, served through the model API (the
 # slot server takes token prompts alone): vlm and enc-dec
 LM_CROSS = ("llama-3.2-vision-90b", "seamless-m4t-large-v2")
@@ -836,13 +847,14 @@ def read(counters) -> dict:
     return {k: v for c in counters for k, v in c.items()}
 
 
-def lm_config(arch: str):
-    """The arch's config, at the depth ``LM_DEPTH`` cuts it to."""
+def lm_config(arch: str, depth: dict = LM_DEPTH):
+    """The arch's config, at the depth ``depth`` (serving's ``LM_DEPTH``
+    or training's ``LM_TRAIN_DEPTH``) cuts it to."""
     from dataclasses import replace
     from repro_torch.configs import get_config
     cfg = get_config(arch)
-    if arch in LM_DEPTH:
-        cfg = replace(cfg, n_layers=LM_DEPTH[arch])
+    if arch in depth:
+        cfg = replace(cfg, n_layers=depth[arch])
     return cfg
 
 
@@ -1233,76 +1245,178 @@ def phase_lm_parity(torch) -> None:
 
 
 # LM training at full published width: (arch, batch, steps) at seq 2048;
-# mamba2 takes the loop's default donate=True like internlm2
-LM_TRAIN = (("mamba2-780m", 8, 4), ("internlm2-1.8b", 4, 3))
+# every run takes the loop's default donate=True
+LM_TRAIN = (("mamba2-780m", 8, 4), ("internlm2-1.8b", 4, 3),
+            ("granite-moe-1b-a400m", 4, 3), ("zamba2-7b", 4, 3))
 LM_TRAIN_SEQ = 2048
-# a donated update keeps params, grads and both moments (4 x 8.0 GB for
-# internlm2-1.8b) plus one layer's working set; two copies of the state
-# alive at once would pass this
-LM_TRAIN_PEAK_GB = 60.0
+# depth cuts for training, widths unchanged: the state is 16 bytes a
+# parameter (float32 params, grads and two AdamW moments). zamba2-7b's 81
+# SSM blocks are 6.757 G parameters, 108.1 GB of state; 3 of its 9 groups
+# (27 blocks, the shared block, embeddings and head) are 2.546 G, 40.7 GB
+LM_TRAIN_DEPTH = {"zamba2-7b": 27}
+# peak limits, GB: the state plus one layer's (zamba2: one group's) working
+# set under remat "full". internlm2-1.8b: 4 x 8.0 GB of state; two copies
+# alive at once (a donated update not in place) would pass 60.
+# granite-moe-1b-a400m: 21.8 GB of state plus ~5 GB (a layer's float32
+# attention at 16 heads, the MoE buffers [32 x 2560, 1024], the 24 saved
+# block inputs); two copies would pass 40. zamba2-7b at 27 blocks: 40.7 GB
+# of state plus one group's recompute (9 SSM blocks' saved activations at
+# ~2.5 GB each, the shared block's float32 attention at 32 heads of 112)
+# and one block's SSD backward, ~30 GB; a second copy cannot fit the card
+LM_TRAIN_PEAK_GB = {"internlm2-1.8b": 60.0, "granite-moe-1b-a400m": 40.0,
+                    "zamba2-7b": 76.0}
+# grok-1-314b trains on its smoke variant only ([lm train parity]): at
+# full width one layer and its untied embeddings and head already need
+# more state than the card holds (printed by ``grok_train_reckoning``)
+LM_TRAIN_OVER = "grok-1-314b"
 # card against the CPU, 3 smoke-variant steps from the same params and
 # batches. float32: loss relative, and params and moments at the train
 # step's tolerance (the reference's own grad-accumulation test). bf16:
 # loss and gnorm relative, and the whole-tree relative L2 distance of the
 # params' change over the 3 steps (the port against the reference, both
 # on the CPU, measured 1.1e-4, 1.3e-4 and 0.047-0.058; a dropped update
-# gives ~0.33)
-LM_TRAIN_F32 = dict(loss=1e-4, rtol=2e-4, atol=2e-5)
+# gives ~0.33). MoE in float32: loss and gnorm relative and the params'
+# change (relative L2, as bf16) within 1e-3, its per-element ratio only
+# printed: AdamW turns the card's roundoff in the experts' weights into
+# lr-sized steps (granite's smoke variant reached 1.02 of the per-element
+# limit on an H100 at 700 W, with the loss 1.8e-7 and gnorm 6.9e-8 apart
+# and the same drops)
+LM_TRAIN_F32 = dict(loss=1e-4, rtol=2e-4, atol=2e-5, moe_gnorm=1e-4,
+                    moe_update=1e-3)
 LM_TRAIN_BF16 = dict(loss=1e-3, gnorm=1e-2, update=0.2)
 # ssd_trainable against ssd_chunked on the card: both differentiate
 # ssd_chunked, so the gradients are expected to be the same bits
 SSD_GRAD_RTOL = 1e-6
 
 
+def n_params(cfg) -> int:
+    """The parameter count of ``cfg``'s tree, from its shapes alone."""
+    from repro_torch.models import lm
+    return sum(t.numel() for t in _leaves(lm._init(None, cfg)))
+
+
+@contextlib.contextmanager
+def recorded_drops():
+    """A list that collects every ``moe_apply`` call's ``drop_frac`` (a
+    device scalar, read after the run) while the block runs."""
+    from repro_torch.nn import moe
+    drops, apply = [], moe.moe_apply
+
+    def recording(*a, **kw):
+        y, aux = apply(*a, **kw)
+        drops.append(aux["drop_frac"].detach())
+        return y, aux
+    moe.moe_apply = recording
+    try:
+        yield drops
+    finally:
+        moe.moe_apply = apply
+
+
 def lm_train_run(torch, arch: str, batch: int, steps: int, counters,
                  ckpt_dir: Path) -> dict:
-    """``train.loop.run`` at full published width: fresh seeded params on
-    the card, the port's token stream, no checkpoint at this size; every
-    counter set to 0 just before and read just after."""
+    """``train.loop.run`` at full published width (zamba2-7b at the depth
+    ``LM_TRAIN_DEPTH`` cuts it to): fresh seeded params on the card, the
+    port's token stream, no checkpoint at this size; every counter set to
+    0 just before and read just after. MoE's drop share is each step's
+    mean over its ``moe_apply`` calls: every layer's forward, and those of
+    the recompute that run to their end (checkpointing stops a recompute
+    once it has the tensors the backward pass needs; the routing is the
+    same)."""
     import shutil
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.train.loop import LoopConfig, run
-    cfg = get_config(arch)
+    cfg = lm_config(arch, LM_TRAIN_DEPTH)
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     loop = LoopConfig(total_steps=steps, log_every=1, ckpt_every=10 ** 9,
                       ckpt_dir=str(ckpt_dir))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    marks = [0]                     # moe_apply calls at each step's end
+
+    def log(line):
+        if line.startswith("[loop] step ") and "loss=" in line:
+            marks.append(len(drops))
+        print(f"[lm train] {arch} {line}")
     zero(counters)
-    res = run(cfg, ShapeConfig("chip", "train", LM_TRAIN_SEQ, batch), loop,
-              log=lambda line: print(f"[lm train] {arch} {line}"),
-              device="cuda")
+    with recorded_drops() as drops:
+        res = run(cfg, ShapeConfig("chip", "train", LM_TRAIN_SEQ, batch),
+                  loop, log=log, device="cuda")
     launches = read(counters)
     peak = torch.cuda.max_memory_allocated() / 1e9
     if res.final_step != steps or res.restored_from is not None:
         fail(f"{arch} train: ran to step {res.final_step} of {steps}, "
              f"restored from {res.restored_from}")
-    if not all(map(math.isfinite, res.losses + res.gnorms)):
-        fail(f"{arch} train: loss {res.losses}, gnorm {res.gnorms}")
+    parts = [[p[k] for p in res.parts] for k in ("ce", "lb")]
+    if not all(map(math.isfinite, res.losses + res.gnorms + sum(parts, []))):
+        fail(f"{arch} train: loss {res.losses}, gnorm {res.gnorms}, ce and "
+             f"lb {parts}")
     want = {k: 0 for k in launches}
-    if cfg.family == "ssm":        # remat="full": forward + recompute
+    if cfg.family in ("ssm", "hybrid"):   # remat="full": forward + recompute
         want["ssd"] = 2 * cfg.n_layers * steps
     if launches != want:
         fail(f"{arch} train: launches {launches}, expected {want}")
+    calls = [drops[a:b] for a, b in zip(marks, marks[1:])]
+    drop = [float(torch.stack(c).mean()) for c in calls if c]
+    if cfg.n_experts and (len(calls) != steps or min(parts[1]) <= 0
+                          or min(map(len, calls)) < cfg.n_layers):
+        fail(f"{arch} train: moe_apply calls a step {list(map(len, calls))} "
+             f"(at least {cfg.n_layers}); lb {parts[1]}")
     step_s = sorted(res.step_s[1:])[(steps - 1) // 2]
     out = {"step_ms": 1e3 * step_s, "tok_s": batch * LM_TRAIN_SEQ / step_s,
            "peak_gb": peak, "launches": launches}
-    print(f"[lm train] {arch} on the card: {cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, vocab {cfg.phys_vocab}, {cfg.param_dtype} params, "
-          f"{cfg.compute_dtype} compute, remat {cfg.remat}, batch {batch} x "
-          f"{LM_TRAIN_SEQ}: step {out['step_ms']:.1f} ms (median of steps "
-          f"2-{steps}, host clock from drawing the batch to the loss; step 1 "
-          f"{1e3 * res.step_s[0]:.1f} ms), {out['tok_s']:.0f} tokens/s, peak "
-          f"{peak:.2f} GB allocated; loss {res.losses}, gnorm {res.gnorms}; "
-          f"K6 launches {launches['ssd']} = "
-          f"{launches['ssd'] / steps:g} a step")
-    if cfg.family == "dense" and peak > LM_TRAIN_PEAK_GB:
-        fail(f"{arch} train: peak {peak:.2f} GB > {LM_TRAIN_PEAK_GB} GB: the "
-             f"donated update is not in place")
+    full, n = get_config(arch).n_layers, n_params(cfg)
+    groups = (f"{cfg.n_layers // cfg.attn_every} of {full // cfg.attn_every}"
+              f" groups of {cfg.attn_every} SSM blocks and the shared "
+              f"block, " if cfg.attn_every else "")
+    cut = (f" (cut from {full}: {groups}{n / 1e9:.3f} G parameters, "
+           f"{16 * n / 1e9:.1f} GB of training state)"
+           if cfg.n_layers != full else f" ({n / 1e9:.3f} G parameters)")
+    moe = (f", {cfg.n_experts} experts top {cfg.top_k} at capacity factor "
+           f"{cfg.capacity_factor}, drop share a step (mean over the "
+           f"layers) {drop}" if cfg.n_experts else "")
+    print(f"[lm train] {arch} on the card: {cfg.n_layers} layers{cut}, "
+          f"d_model {cfg.d_model}, vocab {cfg.phys_vocab}, {cfg.param_dtype} "
+          f"params, {cfg.compute_dtype} compute, remat {cfg.remat}, batch "
+          f"{batch} x {LM_TRAIN_SEQ}: step {out['step_ms']:.1f} ms (median "
+          f"of steps 2-{steps}, host clock from drawing the batch to the "
+          f"loss; step 1 {1e3 * res.step_s[0]:.1f} ms), {out['tok_s']:.0f} "
+          f"tokens/s, peak {peak:.2f} GB allocated; loss {res.losses}, gnorm "
+          f"{res.gnorms}, ce {parts[0]}, lb {parts[1]}{moe}; K6 launches "
+          f"{launches['ssd']} = {launches['ssd'] / steps:g} a step")
+    limit = LM_TRAIN_PEAK_GB.get(arch)
+    if limit is not None and peak > limit:
+        fail(f"{arch} train: peak {peak:.2f} GB > {limit} GB: a second copy "
+             f"of the state, or more than one layer's working set, is alive")
     del res
     profile_train_step(torch, cfg, batch)
     return out
+
+
+def grok_train_reckoning(torch) -> None:
+    """Why grok-1-314b trains only on its smoke variant: its training
+    state at one layer of full width, reckoned from the config's shapes."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    cfg = get_config(LM_TRAIN_OVER)
+    n1, n2 = (n_params(replace(cfg, n_layers=n)) for n in (1, 2))
+    n0 = n1 - (n2 - n1)              # embeddings, head and the final norm
+    card = torch.cuda.get_device_properties(0).total_memory / 1e9
+    state = 16 * n1 / 1e9
+    if state <= card:
+        fail(f"{LM_TRAIN_OVER}: {state:.1f} GB of training state at one "
+             f"layer fits the card's {card:.1f} GB: train it at full width")
+    print(f"[lm train] {LM_TRAIN_OVER} at full width: one of {cfg.n_layers} "
+          f"layers is {(n1 - n0) / 1e9:.3f} G parameters and the untied "
+          f"embeddings and head {n0 / 1e9:.3f} G, {n1 / 1e9:.3f} G in all: "
+          f"{state:.1f} GB of training state (16 bytes a parameter: float32 "
+          f"params, grads and two AdamW moments) against the card's "
+          f"{card:.1f} GB, and {16 * n_params(cfg) / 1e9:.0f} GB at all "
+          f"{cfg.n_layers} layers; it trains on its smoke variant here, at "
+          f"full width once the sharded step builders are ported "
+          f"(ROADMAP.md queue 1 item 2a)")
+
 
 
 def profile_train_step(torch, cfg, batch: int) -> None:
@@ -1331,10 +1445,15 @@ def profile_train_step(torch, cfg, batch: int) -> None:
 
 
 def lm_train_parity(torch, counters) -> None:
-    """Both smoke variants, 3 steps (lr 1e-3, batch 4 x 128) on the card
-    and on the CPU from the same params and token-stream batches, in
-    float32 and in bf16 compute, held to LM_TRAIN_F32 / LM_TRAIN_BF16; K6
-    must have launched in the card's mamba2 runs."""
+    """Each trained smoke variant (``LM_TRAINED``), 3 steps (lr 1e-3, batch
+    4 x 128) on the card and on the CPU from the same params and
+    token-stream batches, in float32 and in bf16 compute, held to
+    LM_TRAIN_F32 (MoE by the params' change) / LM_TRAIN_BF16; K6 must have
+    launched once per SSM block
+    a step in the card's mamba2 and zamba2 runs. zamba2 runs 4 SSM blocks
+    in groups of 2 (the shared block used twice); MoE's embedding rows are
+    shifted by their standard deviation, a shared direction that sends
+    most tokens to the same experts, so capacity 1.25 drops choices."""
     from dataclasses import replace
     from repro_torch.configs import get_config, smoke_variant
     from repro_torch.configs.base import ShapeConfig
@@ -1347,7 +1466,12 @@ def lm_train_parity(torch, counters) -> None:
         for compute in ("float32", "bfloat16"):
             cfg = replace(smoke_variant(get_config(arch)),
                           compute_dtype=compute)
+            if cfg.family == "hybrid":
+                cfg = replace(cfg, n_layers=2 * cfg.attn_every)
             p0 = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+            if cfg.n_experts:
+                emb = p0["embed"]["embedding"]
+                emb += emb.std()
             batches = [sample_batch(TokenStreamConfig(cfg.vocab_size, 128,
                                                       4), i)
                        for i in range(3)]
@@ -1359,62 +1483,81 @@ def lm_train_parity(torch, counters) -> None:
                 o = opt.init(p)
                 zero(counters)
                 ms = []
-                for b in batches:
-                    p, o, m = step(p, o, {k: v.to(device)
-                                          for k, v in b.items()})
-                    ms.append((float(m["loss"]), float(m["gnorm"])))
+                with recorded_drops() as drops:
+                    for b in batches:
+                        p, o, m = step(p, o, {k: v.to(device)
+                                              for k, v in b.items()})
+                        ms.append((float(m["loss"]), float(m["gnorm"])))
                 out[device] = (ms, tree_map(lambda t: t.cpu(),
                                             {"params": p, "opt": o}),
-                               read(counters)["ssd"])
-            (mc, sc, kc), (mp, sp, _) = out["cuda"], out["cpu"]
-            if cfg.family == "ssm" and kc != 3 * cfg.n_layers:
+                               read(counters)["ssd"],
+                               [float(d) for d in drops])
+            (mc, sc, kc, dc), (mp, sp, _, dp) = out["cuda"], out["cpu"]
+            if cfg.n_experts and not min(dp) > 0:
+                fail(f"{arch} {compute} parity: no choice dropped on the "
+                     f"CPU ({dp})")
+            if (cfg.family in ("ssm", "hybrid")
+                    and kc != 3 * cfg.n_layers):
                 fail(f"{arch} {compute} parity: K6 launched {kc} times on "
                      f"the card, expected {3 * cfg.n_layers}")
             loss_rel = max(abs(a[0] - b[0]) / abs(b[0]) for a, b in
                            zip(mc, mp))
             gn_rel = max(abs(a[1] - b[1]) / abs(b[1]) for a, b in
                          zip(mc, mp))
+            num = den = 0.0
+            for (_, c), (_, q), (_, q0) in zip(tree_paths(sc["params"]),
+                                               tree_paths(sp["params"]),
+                                               tree_paths(p0)):
+                num += float((c - q).square().sum())
+                den += float((q - q0).square().sum())
+            upd = (num / den) ** 0.5
+            what = f"params' change {upd:.3g} apart (relative L2)"
             if compute == "float32":
                 want = dict(tree_paths(sp))
                 worst = max(float(((a - want[k]).abs()
                                    / (LM_TRAIN_F32["atol"] + LM_TRAIN_F32[
                                        "rtol"] * want[k].abs())).max())
                             for k, a in tree_paths(sc))
-                ok = loss_rel <= LM_TRAIN_F32["loss"] and worst <= 1.0
-                what = (f"params and moments at most {worst:.3g} of the "
-                        f"rtol {LM_TRAIN_F32['rtol']} / atol "
-                        f"{LM_TRAIN_F32['atol']} limit")
+                ok = loss_rel <= LM_TRAIN_F32["loss"] and (
+                    gn_rel <= LM_TRAIN_F32["moe_gnorm"]
+                    and upd <= LM_TRAIN_F32["moe_update"]
+                    if cfg.n_experts else worst <= 1.0)
+                what += (f", params and moments at most {worst:.3g} of the "
+                         f"rtol {LM_TRAIN_F32['rtol']} / atol "
+                         f"{LM_TRAIN_F32['atol']} limit")
             else:
-                num = den = 0.0
-                for (_, c), (_, q), (_, q0) in zip(tree_paths(sc["params"]),
-                                                   tree_paths(sp["params"]),
-                                                   tree_paths(p0)):
-                    num += float((c - q).square().sum())
-                    den += float((q - q0).square().sum())
-                upd = (num / den) ** 0.5
                 ok = (loss_rel <= LM_TRAIN_BF16["loss"]
                       and gn_rel <= LM_TRAIN_BF16["gnorm"]
                       and upd <= LM_TRAIN_BF16["update"])
-                what = f"params' change {upd:.3g} apart (relative L2)"
-            line = (f"{arch} smoke {compute}, 3 steps cuda vs cpu: loss "
-                    f"{loss_rel:.3g} apart (relative), gnorm {gn_rel:.3g}, "
-                    f"{what}; K6 launches on the card {kc}")
+            drop = (f"; drop share {sum(dc) / len(dc):.4f} on the card, "
+                    f"{sum(dp) / len(dp):.4f} on the CPU (mean over the "
+                    f"layers and steps)" if dc else "")
+            line = (f"{arch} smoke ({cfg.n_layers} layers) {compute}, 3 "
+                    f"steps cuda vs cpu: loss {loss_rel:.3g} apart "
+                    f"(relative), gnorm {gn_rel:.3g}, {what}; K6 launches on "
+                    f"the card {kc}{drop}")
             if not ok:
                 fail(f"[lm train parity] {line}")
             print(f"[lm train parity] {line}")
 
 
-def ssd_trainable_check(torch) -> None:
-    """ssd_trainable at one mamba2-780m training layer's scan (x [8, 2048,
-    48, 64], g 1, n 128, bf16) against ssd_chunked on the card: y within
+# one training layer's SSD scan (b, s, h, p, g, n) at LM_TRAIN's batches:
+# mamba2-780m at 8 x 2048, zamba2-7b at 4 x 2048
+SSD_TRAIN_SHAPES = {"mamba2-780m": (8, LM_TRAIN_SEQ, 48, 64, 1, 128),
+                    "zamba2-7b": (4, LM_TRAIN_SEQ, 112, 64, 1, 64)}
+
+
+def ssd_trainable_check(torch, arch: str) -> None:
+    """ssd_trainable at one training layer's scan of ``arch``
+    (``SSD_TRAIN_SHAPES``, bf16) against ssd_chunked on the card: y within
     K6's limit (SSD_RTOL of the largest |y| plus one bf16 step), the five
     gradients within SSD_GRAD_RTOL of each one's largest magnitude; both
-    routes forward + backward timed (CUDA events)."""
+    routes timed forward alone and forward + backward (CUDA events)."""
     import torch.nn.functional as F
     from repro_torch.kernels.ssd.ops import ssd_trainable
     from repro_torch.nn.ssm import ssd_chunked
     gen = torch.Generator().manual_seed(9)
-    b, s, h, p, g, n = 8, LM_TRAIN_SEQ, 48, 64, 1, 128
+    b, s, h, p, g, n = SSD_TRAIN_SHAPES[arch]
     x = torch.randn((b, s, h, p), generator=gen).to("cuda", torch.bfloat16)
     dt = F.softplus(torch.randn((b, s, h), generator=gen)).to("cuda")
     A = -torch.exp(torch.randn(h, generator=gen) * 0.3).to("cuda")
@@ -1444,12 +1587,16 @@ def ssd_trainable_check(torch) -> None:
     ms = time_ms(lambda: grads(ssd_trainable), torch, reps=5)
     plain_ms = time_ms(lambda: grads(lambda *a: ssd_chunked(*a, 128)[0]),
                        torch, reps=5)
-    print(f"[lm train] ssd_trainable [{b}, {s}, {h}, {p}] g {g} n {n} bf16 "
+    fwd_ms = time_ms(lambda: ssd_trainable(*args), torch, reps=5)
+    plain_fwd_ms = time_ms(lambda: ssd_chunked(*args, 128), torch, reps=5)
+    print(f"[lm train] ssd_trainable at {arch}'s training layer [{b}, {s}, "
+          f"{h}, {p}] g {g} n {n} bf16 "
           f"vs ssd_chunked on the card: y at most {share:.3g} of K6's "
           f"per-element limit, gradients apart by at most "
-          f"{max(errs.values()):.3g} of their largest (relative); forward + "
-          f"backward {ms:.3f} ms (plain route {plain_ms:.3f} ms; CUDA "
-          f"events)")
+          f"{max(errs.values()):.3g} of their largest (relative); forward "
+          f"{fwd_ms:.3f} ms through K6 (plain {plain_fwd_ms:.3f} ms), "
+          f"forward + backward {ms:.3f} ms (plain route {plain_ms:.3f} ms; "
+          f"CUDA events)")
 
 
 def lm_train_restart(torch) -> None:
@@ -1516,25 +1663,29 @@ def lm_train_launcher(tmp: Path) -> None:
 
 
 def phase_lm_train(torch, counters) -> dict:
-    """[lm train]: both architectures trained at full published width
-    through ``train.loop.run`` (``lm_train_run``), then card-against-CPU
-    parity at the smoke variants, ``ssd_trainable`` at a full-width
-    layer's scan, a restart on the card and the launcher. Returns the
-    launches of the full-width runs by kernel."""
+    """[lm train]: the ``LM_TRAIN`` architectures trained at full published
+    width through ``train.loop.run`` (``lm_train_run``), grok-1-314b's
+    state reckoned against the card, then card-against-CPU parity at the
+    ``LM_TRAINED`` smoke variants, ``ssd_trainable`` at a mamba2-780m and
+    a zamba2-7b training layer's scan, a restart on the card and the
+    launcher. Returns each full-width run's launches by kernel."""
     tmp = ROOT / "build" / "chip_smoke"
-    runs = {arch: lm_train_run(torch, arch, batch, steps, counters,
-                               tmp / f"lm_train_{arch}")
-            for arch, batch, steps in LM_TRAIN}
+    runs = {}
+    for arch, batch, steps in LM_TRAIN:
+        t0 = time.perf_counter()
+        runs[arch] = lm_train_run(torch, arch, batch, steps, counters,
+                                  tmp / f"lm_train_{arch}")
+        print(f"[lm train] {arch} run {time.perf_counter() - t0:.1f} s")
+    grok_train_reckoning(torch)
+    t0 = time.perf_counter()
     lm_train_parity(torch, counters)
-    ssd_trainable_check(torch)
+    print(f"[lm train parity] {time.perf_counter() - t0:.1f} s")
+    for arch in SSD_TRAIN_SHAPES:
+        ssd_trainable_check(torch, arch)
     torch.cuda.empty_cache()
     lm_train_restart(torch)
     lm_train_launcher(tmp / "lm_train_launcher")
-    total = {}
-    for r in runs.values():
-        for k, v in r["launches"].items():
-            total[k] = total.get(k, 0) + v
-    return total
+    return {arch: r["launches"] for arch, r in runs.items()}
 
 
 class Prerecorded:
@@ -1589,6 +1740,14 @@ def awake(params: dict, gain: float = 2.0) -> dict:
             v["scale"].mul_(gain)
     bb["fc0"]["w"].mul_(gain)
     return params
+
+
+def firing(records: list) -> list:
+    """The sweep records whose layer 1 spiked. Circuit (b)'s never fires
+    on gestures, so its head is silent by physics and any logit check on
+    it vacuous; roundoff in the card's training can tie its accuracy with
+    another circuit's and win the tie on its label (seen in [files])."""
+    return [r for r in records if r["layer1_spikes"] > 0]
 
 
 def check_logits(got, want, what: str) -> float:
@@ -2116,7 +2275,7 @@ def phase_sweep(torch, counters, events, labels) -> dict:
 
 def phase_deploy(torch, sf, sweep_out: dict, src) -> dict:
     """Deploy from the full-width sweep: ``select_record`` per protocol at
-    T_INTG 10 ms, ``deploy_from_sweep`` → ``load_deployment(...,
+    T_INTG 10 ms among the records whose layer 1 fired (``firing``), ``deploy_from_sweep`` → ``load_deployment(...,
     artifact=)`` on cuda; the frozen checkpoint serves the 16 recorded
     synthetic-gesture streams through the MAC fold (K3) and then the
     deposit fold (K2), counters set to 0 before and read after each; the
@@ -2129,7 +2288,7 @@ def phase_deploy(torch, sf, sweep_out: dict, src) -> dict:
     results, art = sweep_out["results"], sweep_out["artifact"]
     deps = {}
     for proto, res in results.items():
-        rec = deploy.select_record(res.records, protocol=proto,
+        rec = deploy.select_record(firing(res.records), protocol=proto,
                                    t_intg_ms=10.0)
         ckpt = ROOT / "build" / "chip_smoke" / f"ckpt_{proto}"
         deploy.deploy_from_sweep(res, p2m_dvs.CONFIG, rec, ckpt,
@@ -2337,7 +2496,7 @@ def phase_files(torch, sf, pc, counters) -> dict:
               f"launched")
 
         # 4. the deployed 10 ms record's physics eval on a val batch
-        rec = deploy.select_record(results["frozen"].records,
+        rec = deploy.select_record(firing(results["frozen"].records),
                                    protocol="frozen", t_intg_ms=t_ms)
         ckpt = base / "ckpt_files"
         deploy.deploy_from_sweep(results["frozen"], cfg, rec, ckpt,
@@ -3723,8 +3882,8 @@ def main() -> int:
     # or at the seamless encoder's (d 64, its decoder cross alike)
     causal_row = {112: "_d112", 256: "_d256"}
     noncausal_row = {128: "_vlm_cross", 64: "_encoder"}
-    fa_launches = {"": lm_train["flash_attention"], "_d112": 0, "_d256": 0,
-                   "_vlm_cross": 0, "_encoder": 0}
+    fa_launches = {"": sum(n["flash_attention"] for n in lm_train.values()),
+                   "_d112": 0, "_d256": 0, "_vlm_cross": 0, "_encoder": 0}
     for arch, run in lm_runs.items():
         hd, n = run["head_dim"], run["launches"]
         fa_launches[causal_row.get(hd, "")] += n["flash_attention"]
@@ -3738,9 +3897,11 @@ def main() -> int:
                    n) for tag, n in fa_launches.items()]
     lm_kernels += [
         (ssd_rows["bfloat16"], "ssd", "ssd.cu", "ssd/ssd.py:85",
-         lm_runs["mamba2-780m"]["launches"]["ssd"] + lm_train["ssd"]),
+         lm_runs["mamba2-780m"]["launches"]["ssd"]
+         + lm_train["mamba2-780m"]["ssd"]),
         (ssd_rows["bfloat16_zamba2"], "ssd_zamba2", "ssd.cu", "ssd/ssd.py:85",
-         lm_runs["zamba2-7b"]["launches"]["ssd"])]
+         lm_runs["zamba2-7b"]["launches"]["ssd"]
+         + lm_train["zamba2-7b"]["ssd"])]
     for row, name, source, replaces, n in lm_kernels:
         kernels.append({
             "name": name, "route": "cuda",

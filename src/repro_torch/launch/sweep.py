@@ -191,7 +191,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.dryrun_cells:
         raise NotImplementedError(
             "the dry-run cell sweep (launch/dryrun*.py) comes with a later "
-            "slice of the PyTorch port (ROADMAP.md queue 1 item 7)")
+            "slice of the PyTorch port (ROADMAP.md queue 1 item 2c)")
     return run_codesign_grid(args)
 
 

@@ -10,10 +10,11 @@ PyTorch).
 runs end to end; a rerun with the same ``--ckpt-dir`` resumes from its
 newest checkpoint (by default the run's last step is one). Without
 ``--smoke`` the shape is ``--shape`` from ``SHAPES``. The port trains
-the ``dense`` (without qk-norm or GeGLU) and ``ssm`` families on one
-device; the other architectures (``lm.check_trainable``: the moe,
-hybrid, vlm and enc-dec families, qk-norm and GeGLU),
-``--production-mesh`` and ``--multi-pod`` (sharding) print
+the ``dense`` (without qk-norm or GeGLU), ``ssm``, ``moe`` and
+``hybrid`` families on one device (grok-1-314b only on its smoke
+variant: at full width its state needs several cards); the other architectures
+(``lm.check_trainable``: the vlm and enc-dec families, qk-norm and
+GeGLU), ``--production-mesh`` and ``--multi-pod`` (sharding) print
 ``error: ...`` and exit 2.
 """
 from __future__ import annotations
@@ -51,7 +52,7 @@ def main(argv: list[str] | None = None) -> int:
     if args.production_mesh or args.multi_pod:
         print("error: --production-mesh and --multi-pod need the sharded "
               "step builders, which are not ported yet (ROADMAP.md, queue "
-              "4); the port trains on one device", file=sys.stderr)
+              "1 item 2a); the port trains on one device", file=sys.stderr)
         return 2
     try:
         cfg = get_config(args.arch)

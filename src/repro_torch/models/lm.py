@@ -11,22 +11,27 @@
 
 All five are served (``init_params``, ``params_from_jax``,
 ``init_cache``, ``prefill``, ``decode_step``); ``dense`` without qk-norm
-or GeGLU and ``ssm`` are also trained (``forward``, ``backbone``,
-``loss_fn``). The encoder-decoder family is ``models/encdec.py``'s (it
-reuses these blocks); here it raises ``NotImplementedError``, as do the
-families that are served but not trained when training is asked of them.
+or GeGLU, ``ssm``, ``moe`` and ``hybrid`` are also trained (``forward``,
+``backbone``, ``loss_fn``). The encoder-decoder family is
+``models/encdec.py``'s (it reuses these blocks); here it raises
+``NotImplementedError``, as do vlm, qk-norm and GeGLU when training is
+asked of them.
 
 Params keep the reference's tree: ``embed``, ``final_norm`` and
 ``blocks`` with every leaf stacked ``[n_layers, ...]`` (hybrid:
 ``[n_groups, k, ...]`` plus one unstacked ``shared`` block; vlm:
 ``[n_groups, k - 1, ...]`` plus ``cross_blocks`` ``[n_groups, ...]``);
-layers run in a Python loop over views of the stacks. Training (``forward``,
-``loss_fn``) runs each block under ``cfg.remat`` (``_maybe_remat``), the
-attention through the plain ``attention_core`` and the SSD scan through
-``nn/ssm.ssm_block_apply`` (K6's forward on the card). Prefill's causal
-self-attention and the vlm prefill's non-causal attention onto the
-image tokens go through ``kernels/flash_attention/ops.gqa_attention``
-and the SSM prefill's scan through ``kernels/ssd/ops.ssd`` (the CUDA
+layers run in a Python loop over views of the stacks. Training
+(``forward``, ``loss_fn``) runs each block under ``cfg.remat``
+(``_maybe_remat``; a hybrid group of ``attn_every`` SSM blocks and the
+shared block after it runs under one wrapper, as the reference remats its
+scanned group), the attention through the plain ``attention_core``, MoE
+layers through ``nn/moe.moe_apply`` at the config's capacity (drops and
+all; their load-balance losses summed in float32 into ``lb``) and the SSD
+scan through ``nn/ssm.ssm_block_apply`` (K6's forward on the card).
+Prefill's causal self-attention and the vlm prefill's non-causal
+attention onto the image tokens go through
+``kernels/flash_attention/ops.gqa_attention`` and the SSM prefill's scan through ``kernels/ssd/ops.ssd`` (the CUDA
 kernels on the card); decode stays on the plain ``attention_core`` and
 SSM step, as in the reference. Decode updates the self-attention and SSM
 caches in place and only reads the cross-attention cache.
@@ -61,7 +66,7 @@ from repro_torch.utils import tree_map
 
 Params = dict
 SERVED = ("dense", "ssm", "moe", "hybrid", "vlm")
-TRAINED = ("dense", "ssm")
+TRAINED = ("dense", "ssm", "moe", "hybrid")
 
 
 def check_servable(cfg: LMConfig) -> None:
@@ -81,19 +86,19 @@ def check_servable(cfg: LMConfig) -> None:
 
 def check_trainable(cfg: LMConfig) -> None:
     """Raise ``NotImplementedError`` for a config the port cannot train:
-    all but ``dense`` (without qk-norm or GeGLU) and ``ssm``."""
+    vlm, enc-dec, and qk-norm or GeGLU in any family."""
     if cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: training the enc-dec family is not ported yet "
             f"(models/encdec.py serves it; its training is a later slice "
             f"of ROADMAP.md, queue 1)")
     check_servable(cfg)
-    if cfg.family not in TRAINED or cfg.n_experts:
+    if cfg.family not in TRAINED:
         raise NotImplementedError(
             f"{cfg.name}: training the {cfg.family!r} family is not ported "
-            f"yet (the port trains {TRAINED}; MoE, hybrid and vlm training, "
-            f"with MoE's load-balance loss, are a later slice of "
-            f"ROADMAP.md, queue 1)")
+            f"yet (the port trains {TRAINED}; vlm training, with "
+            f"img_embed in the batch, is a later slice of ROADMAP.md, "
+            f"queue 1)")
     if cfg.qk_norm or cfg.act != "silu":
         raise NotImplementedError(
             f"{cfg.name}: training with qk-norm or GeGLU is not ported yet "
@@ -319,11 +324,16 @@ def _maybe_remat(fn, cfg: LMConfig):
 def _dense_block_fwd(h: torch.Tensor, bp: Params, cfg: LMConfig,
                      positions: torch.Tensor | None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Returns (h, moe aux loss); the aux loss is 0 (no MoE is ported)."""
+    """Returns (h, moe aux loss): the MoE layer's load-balance loss, or 0
+    for an MLP block."""
     h = h + L.self_attention(bp["attn"], L.rmsnorm(h, bp["ln1"],
                                                    cfg.norm_eps),
                              cfg, causal=True, positions=positions)
-    y = L.mlp_apply(bp["mlp"], L.rmsnorm(h, bp["ln2"], cfg.norm_eps), cfg)
+    x = L.rmsnorm(h, bp["ln2"], cfg.norm_eps)
+    if cfg.n_experts:
+        y, aux = moe_mod.moe_apply(bp["moe"], x, cfg)
+        return h + y, aux["lb_loss"]
+    y = L.mlp_apply(bp["mlp"], x, cfg)
     return h + y, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
@@ -336,20 +346,32 @@ def _ssm_block_fwd(h: torch.Tensor, bp: Params, cfg: LMConfig
 def backbone(params: Params, h: torch.Tensor, cfg: LMConfig,
              positions: torch.Tensor | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Run the layer stack. Returns (hidden, total moe aux loss)."""
+    """Run the layer stack. Returns (hidden, total moe aux loss): the sum
+    of the MoE layers' load-balance losses in float32, 0 without MoE (as
+    in the reference, a hybrid's shared block adds none)."""
     check_trainable(cfg)
-    layers = _layers(params["blocks"], cfg.n_layers)
     lb = torch.zeros((), dtype=torch.float32, device=h.device)
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         def body(h, lb, bp):
             h, lb_i = _dense_block_fwd(h, bp, cfg, positions)
             return h, lb + lb_i
         body = _maybe_remat(body, cfg)
-        for bp in layers:
+        for bp in _layers(params["blocks"], cfg.n_layers):
             h, lb = body(h, lb, bp)
         return h, lb
+    if cfg.family == "hybrid":
+        n_groups, k_blocks = _groups(cfg)
+
+        def group(h, gp, shared):
+            for bp in _layers(gp, k_blocks):
+                h = _ssm_block_fwd(h, bp, cfg)
+            return _dense_block_fwd(h, shared, cfg, positions)[0]
+        group = _maybe_remat(group, cfg)
+        for gp in _layers(params["blocks"], n_groups):
+            h = group(h, gp, params["shared"])
+        return h, lb
     body = _maybe_remat(partial(_ssm_block_fwd, cfg=cfg), cfg)
-    for bp in layers:
+    for bp in _layers(params["blocks"], cfg.n_layers):
         h = body(h, bp)
     return h, lb
 

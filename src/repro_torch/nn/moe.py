@@ -14,6 +14,16 @@ on CUDA, whose order (and so the bits) changes from run to run.
 ``groups`` splits the tokens into that many independent dispatch groups
 (capacity, ranks and the placement stay inside a group), the reference's
 mesh-local dispatch. One card has no mesh, so every path passes 1.
+
+Training differentiates ``moe_apply`` as it stands, at the config's
+capacity factor (serving passes ``serve/steps.serve_config``'s dropless
+one): the gradient reaches ``x`` through the placement and the router,
+the router through the gate values and the load-balance loss's mean
+probabilities, and the experts' weights through their products. A dropped
+choice is never placed and has a zero combine weight, so its gradient is
+0, as in the reference. Each row the backward pass scatters into takes
+one gradient, or exact zeros beside it, or is the discarded zero row, so
+the gradients do not depend on the order in which CUDA's atomics land.
 """
 from __future__ import annotations
 
@@ -85,12 +95,18 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: LMConfig, groups: int = 1
            "drop_frac": 1.0 - keep.float().mean()}
 
     # place the kept (token, choice) rows into per-group [E * Cg, D]
-    # buffers; kept slots are distinct, so this is a plain assignment
-    slot = flat_e * Cg + torch.clamp(rank, max=Cg - 1)        # [G, K*Tg]
-    tok = torch.arange(Tg, device=dev).repeat(K)               # [K*Tg]
-    gi = torch.arange(G, device=dev)[:, None].expand(G, K * Tg)
-    buf = torch.zeros((G, E * Cg, D), dtype=dt, device=dev)
-    buf[gi[keep], slot[keep]] = xg.to(dt)[gi[keep], tok.expand(G, -1)[keep]]
+    # buffers by a gather: each slot reads the one choice that fills it
+    # (kept slots are distinct), an empty slot the zero row n. A dropped
+    # choice writes its index into a spare column of its own, so the
+    # scatter has no duplicate index and the host never waits for a count
+    n = K * Tg
+    slot = flat_e * Cg + torch.clamp(rank, max=Cg - 1)        # [G, n]
+    j = torch.arange(n, device=dev).expand(G, n)
+    src = torch.full((G, E * Cg + n), n, dtype=torch.long, device=dev
+                     ).scatter(1, torch.where(keep, slot, E * Cg + j), j)
+    rows = torch.cat([xg.to(dt).repeat(1, K, 1),              # row j: token
+                      xg.new_zeros((G, 1, D), dtype=dt)], 1)  # j mod Tg
+    buf = torch.gather(rows, 1, src[:, :E * Cg, None].expand(-1, -1, D))
 
     # the experts' GLU over expert-major [E, G*Cg, D]
     bufe = buf.reshape(G, E, Cg, D).transpose(0, 1).reshape(E, G * Cg, D)

@@ -54,10 +54,12 @@ class LoopResult:
     straggler_flags: int = 0
     preempted: bool = False
     restored_from: int | None = None
-    # per step run here, beside ``losses``: the gradient norm, and the
-    # host seconds from drawing the batch to the loss on the host
+    # per step run here, beside ``losses``: the gradient norm, the host
+    # seconds from drawing the batch to the loss on the host, and the
+    # loss's parts as floats ({"ce", "lb"}; empty under grad_accum > 1)
     gnorms: list = field(default_factory=list)
     step_s: list = field(default_factory=list)
+    parts: list = field(default_factory=list)
 
 
 def init_train_state(cfg: LMConfig, opt, device: torch.device
@@ -126,6 +128,8 @@ def run(cfg: LMConfig, shape: ShapeConfig, loop: LoopConfig,
             result.losses.append(loss)
             result.gnorms.append(gnorm)
             result.step_s.append(dt)
+            result.parts.append({k: float(metrics[k]) for k in ("ce", "lb")
+                                 if k in metrics})
 
             if ckpt.should_save(step + 1):
                 save(step + 1, not loop.ckpt_async)

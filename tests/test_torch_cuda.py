@@ -1,6 +1,7 @@
 """PyTorch port: the CUDA kernels (streaming fold, P²M conv, LIF, flash
 attention, SSD) against their plain versions, on the card, the LM
-training path around K6 (``ssd_trainable``, remat, the donated step) and
+training path around K6 (``ssd_trainable``, remat, the donated step; MoE
+with drops and the hybrid's groups against the CPU) and
 the served LM families' smoke variants (the cross-attention ones through
 the model API) on the card against the CPU.
 Imports no JAX, so it runs on the machine with the card:
@@ -741,6 +742,10 @@ def test_cuda_ssd_trainable_vs_the_plain_route(cuda_device, dtype, b, s, h,
 
 
 def _lm_train_case(arch, compute="float32", **kw):
+    """A smoke variant's config, shape (2 x 128), CPU params and 2 batches
+    on the card. MoE's embedding rows are shifted by their standard
+    deviation: the shared direction sends most tokens to the same experts,
+    so the capacity factor of 1.25 drops choices in every layer."""
     from dataclasses import replace
     from repro_torch.configs import get_config, smoke_variant
     from repro_torch.configs.base import ShapeConfig
@@ -750,18 +755,23 @@ def _lm_train_case(arch, compute="float32", **kw):
                   **kw)
     shape = ShapeConfig("t", "train", 128, 2)
     params = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    if cfg.n_experts:
+        emb = params["embed"]["embedding"]
+        emb += emb.std()
     batches = [{k: v.cuda() for k, v in sample_batch(TokenStreamConfig(
         cfg.vocab_size, 128, 2), i).items()} for i in range(2)]
     return cfg, shape, params, batches
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-780m",
+                                  "granite-moe-1b-a400m", "zamba2-7b"])
 def test_cuda_remat_gives_the_same_bits(cuda_device, arch):
-    """On the card (mamba2 through K6), remat "none", "full" and "dots":
-    the same loss and gradients, bit for bit. K6 launches once per block
-    under "none", twice under "full" and "dots" (the backward pass
-    recomputes the block's forward through the SSD scan)."""
+    """On the card (mamba2 and zamba2 through K6), remat "none", "full"
+    and "dots": the same loss and gradients, bit for bit. K6 launches once
+    per SSM block under "none", twice under "full" and "dots" (the
+    backward pass recomputes the block's, or the hybrid group's, forward
+    through the SSD scan)."""
     from repro_torch.kernels.ssd import ssd as ssd_mod
     from repro_torch.models import lm
     from repro_torch.utils import tree_map, tree_paths
@@ -775,8 +785,9 @@ def test_cuda_remat_gives_the_same_bits(cuda_device, arch):
         grads = torch.autograd.grad(loss, leaves)
         launches[remat] = ssd_mod.LAUNCHES["ssd"] - k
         out[remat] = (loss, dict(zip(paths, grads)))
-    if arch == "mamba2-780m":
-        assert launches == {"none": 2, "full": 4, "dots": 4}, launches
+    if cfg.family in ("ssm", "hybrid"):
+        n = cfg.n_layers
+        assert launches == {"none": n, "full": 2 * n, "dots": 2 * n}, launches
     for remat in ("full", "dots"):
         assert torch.equal(out[remat][0], out["none"][0]), remat
         for path, g in out["none"][1].items():
@@ -784,7 +795,8 @@ def test_cuda_remat_gives_the_same_bits(cuda_device, arch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-780m",
+                                  "granite-moe-1b-a400m", "zamba2-7b"])
 def test_cuda_donated_step_gives_the_same_bits(cuda_device, arch):
     """Two bf16-compute train steps on the card with donate=True (the
     update written into the given tensors) and donate=False: the same
@@ -808,6 +820,81 @@ def test_cuda_donated_step_gives_the_same_bits(cuda_device, arch):
     for (path, a), (_, b) in zip(tree_paths(out[False][1]),
                                  tree_paths(out[True][1])):
         assert torch.equal(a, b), path
+
+
+def _train_on(device, cfg, shape, params, batches, drops=None):
+    """Float32 train steps from ``params`` on ``device``: per step (loss,
+    gnorm), the final params and moments on the CPU, and the K6 launches;
+    ``drops`` (a list) collects each moe_apply call's drop_frac."""
+    from repro_torch.kernels.ssd import ssd as ssd_mod
+    from repro_torch.nn import moe
+    from repro_torch.train.steps import build_train_step
+    from repro_torch.utils import tree_map
+    step, _, opt = build_train_step(cfg, shape, lr=1e-3, device=device)
+    p = tree_map(lambda t: t.to(device, copy=True), params)
+    o = opt.init(p)
+    apply, ms, k = moe.moe_apply, [], ssd_mod.LAUNCHES["ssd"]
+
+    def recording(*a, **kw):
+        y, aux = apply(*a, **kw)
+        drops.append(float(aux["drop_frac"]))
+        return y, aux
+    if drops is not None:
+        moe.moe_apply = recording
+    try:
+        for b in batches:
+            p, o, m = step(p, o, {n: v.to(device) for n, v in b.items()})
+            ms.append((float(m["loss"]), float(m["gnorm"])))
+    finally:
+        moe.moe_apply = apply
+    return (ms, tree_map(lambda t: t.cpu(), {"params": p, "opt": o}),
+            ssd_mod.LAUNCHES["ssd"] - k)
+
+
+def _close_train(got, want):
+    """Card against CPU: loss within 1e-4 and gnorm within 1e-3
+    (relative), params and AdamW moments within rtol 2e-4, atol 2e-5 (the
+    train step's tolerance in tests/test_torch_lm_train.py)."""
+    from repro_torch.utils import tree_paths
+    for (l1, g1), (l2, g2) in zip(got[0], want[0]):
+        assert abs(l1 - l2) <= 1e-4 * abs(l2) and abs(g1 - g2) <= 1e-3 * g2
+    ref = dict(tree_paths(want[1]))
+    for path, a in tree_paths(got[1]):
+        torch.testing.assert_close(a, ref[path], rtol=2e-4, atol=2e-5,
+                                   msg=path)
+
+
+@pytest.mark.cuda
+def test_cuda_moe_train_steps_match_cpu(cuda_device):
+    """granite-moe's smoke variant, 2 float32 train steps at capacity
+    factor 1.25 with choices dropped in every layer (the shifted
+    embedding): the card against the CPU (_close_train), with the same
+    drop share in every moe_apply call, and no kernel launched."""
+    cfg, shape, params, batches = _lm_train_case("granite-moe-1b-a400m")
+    drops = {"cuda": [], "cpu": []}
+    got, want = (_train_on(d, cfg, shape, params, batches, drops[d])
+                 for d in ("cuda", "cpu"))
+    assert min(drops["cpu"]) > 0
+    np.testing.assert_allclose(drops["cuda"], drops["cpu"], rtol=0, atol=1e-6)
+    assert got[2] == 0
+    _close_train(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_cuda_hybrid_train_steps_match_cpu(cuda_device, remat):
+    """zamba2's smoke variant at 4 SSM blocks in groups of 2 (the shared
+    block used twice), 2 float32 train steps: K6 launched once per SSM
+    block a forward (n_layers a step under remat "none", twice that under
+    "full", which recomputes each group), and the card against the CPU
+    (_close_train; the CPU runs the plain scan)."""
+    cfg, shape, params, batches = _lm_train_case("zamba2-7b", n_layers=4,
+                                                 remat=remat)
+    got, want = (_train_on(d, cfg, shape, params, batches)
+                 for d in ("cuda", "cpu"))
+    per_step = cfg.n_layers * (2 if remat == "full" else 1)
+    assert got[2] == per_step * len(batches) and want[2] == 0
+    _close_train(got, want)
 
 
 @pytest.mark.cuda

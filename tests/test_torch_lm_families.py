@@ -4,7 +4,8 @@
 numpy inputs: the layers, ``moe_apply``, prefill and decode, the slot
 server, and K5's plain version at head dims 112 and 256. Float32 compute
 unless a test says otherwise; the reference's smoke weights carried across
-by ``params_from_jax``. Training these families stays refused."""
+by ``params_from_jax``. Training moe and hybrid is held in
+tests/test_torch_lm_train_families.py; GeGLU and qk-norm stay refused."""
 from __future__ import annotations
 
 import dataclasses
@@ -428,18 +429,26 @@ def test_flash_attention_plain_wide_heads(d, causal, kv_len):
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "grok-1-314b"])
 def test_training_launcher_refuses_moe(arch, tmp_path, capsys):
+    """MoE trains on one device (tests/test_torch_lm_train_families.py);
+    the launcher still refuses it on a sharded mesh, which is not ported
+    (exit 2, nothing written)."""
     from repro_torch.launch import train as launcher
-    assert launcher.main(["--arch", arch, "--smoke", "--ckpt-dir",
-                          str(tmp_path)]) == 2
+    assert launcher.main(["--arch", arch, "--smoke", "--production-mesh",
+                          "--ckpt-dir", str(tmp_path)]) == 2
     err = capsys.readouterr().err
     assert err.startswith("error:") and "not ported yet" in err
     assert not list(tmp_path.iterdir())
 
 
 def test_moe_and_hybrid_training_are_refused():
+    """What training still refuses beside the now-trained moe and hybrid
+    families: GeGLU (gemma) and qk-norm (qwen3), each naming ROADMAP.md's
+    queue 1; granite and zamba2 pass the same check."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.train.steps import make_batch_specs
-    for arch in ("granite-moe-1b-a400m", "zamba2-7b", "gemma-7b"):
+    for arch in ("granite-moe-1b-a400m", "zamba2-7b"):
+        lm.check_trainable(smoke_variant(get_config(arch)))
+    for arch in ("gemma-7b", "qwen3-32b"):
         cfg = smoke_variant(get_config(arch))
         with pytest.raises(NotImplementedError, match="queue 1"):
             lm.loss_fn({}, {}, cfg)

@@ -169,7 +169,7 @@ def test_stream_cli_smoke_fixture_is_a_later_slice(argv, what, tmp_path,
 def test_sweep_refuses_what_one_card_cannot_run(tmp_path, capsys):
     """More cards than are visible raise before any compute (the launcher
     prints ``error:`` and exits 2); the dry-run cell sweep names queue 1
-    item 7; the one-device executor names its count, and run_sweep
+    item 2c; the one-device executor names its count, and run_sweep
     refuses more cards before any compute."""
     from repro_torch.launch import sweep as launcher
     more = torch.cuda.device_count() + 2
@@ -179,7 +179,7 @@ def test_sweep_refuses_what_one_card_cannot_run(tmp_path, capsys):
                           "--device", "cuda", "--out", str(tmp_path)]) == 2
     assert capsys.readouterr().err.startswith("error: sharding")
     assert not list(tmp_path.iterdir())
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 2c"):
         launcher.main(["--dryrun-cells"])
     ex = make_executor(None)
     assert ex == SweepExecutor() == make_executor(1) and ex.devices == 1

@@ -350,7 +350,7 @@ def test_launcher_trains_checkpoints_and_resumes(tmp_path, capsys):
 @pytest.mark.parametrize("argv,what", [
     (["--production-mesh"], "sharded step builders"),
     (["--multi-pod"], "sharded step builders"),
-    (["--arch", "zamba2-7b"], "not ported yet"),
+    (["--arch", "gemma-7b"], "not ported yet"),
     (["--arch", "llama-3.2-vision-90b"], "not ported yet"),
     (["--arch", "no-such-arch"], "unknown arch"),
 ])
