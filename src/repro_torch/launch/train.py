@@ -9,23 +9,44 @@ PyTorch).
 ``--seq`` shape, so the whole loop (data → step → checkpoint → restart)
 runs end to end; a rerun with the same ``--ckpt-dir`` resumes from its
 newest checkpoint (by default the run's last step is one). Without
-``--smoke`` the shape is ``--shape`` from ``SHAPES``. The port trains
-the ``dense`` (without qk-norm or GeGLU), ``ssm``, ``moe`` and
-``hybrid`` families on one device (grok-1-314b only on its smoke
-variant: at full width its state needs several cards); the other architectures
-(``lm.check_trainable``: the vlm and enc-dec families, qk-norm and
-GeGLU), ``--production-mesh`` and ``--multi-pod`` (sharding) print
-``error: ...`` and exit 2.
+``--smoke`` the shape is ``--shape`` from ``SHAPES``. Every family of
+``configs.ARCHS`` trains on one device (grok-1-314b and
+llama-3.2-vision-90b only on their smoke variants: at full width their
+state needs several cards). The vlm's batch carries image embeddings
+[B, n_image_tokens, vision_dim] and the enc-dec's frame embeddings [B,
+seq, d_model], the stub front ends' output: drawn once, each from its
+own fixed seed (0 and 1) in the compute dtype, and the same every step,
+as the reference's. An unknown arch, ``--production-mesh`` and
+``--multi-pod`` (sharding) print ``error: ...`` and exit 2.
 """
 from __future__ import annotations
 
 import argparse
 import sys
 
+import torch
+
 from repro_torch.configs import get_config, smoke_variant
-from repro_torch.configs.base import SHAPES, ShapeConfig
-from repro_torch.models import lm
+from repro_torch.configs.base import SHAPES, LMConfig, ShapeConfig
+from repro_torch.kernels.backend import resolve_device
 from repro_torch.train.loop import LoopConfig, run
+from repro_torch.train.steps import check_trainable, make_batch_specs
+
+
+def extra_batch(cfg: LMConfig, shape: ShapeConfig, device):
+    """The batch keys beyond tokens and labels (``make_batch_specs``), or
+    None: a function that adds the same standard-normal draws to every
+    step's batch, ``img_embed`` from seed 0 and ``frames`` from seed 1,
+    drawn once on the CPU and placed on ``device`` in the compute dtype."""
+    specs = {k: v for k, v in make_batch_specs(cfg, shape).items()
+             if k not in ("tokens", "labels")}
+    if not specs:
+        return None
+    seeds = {"img_embed": 0, "frames": 1}
+    dev = resolve_device(device)
+    extra = {k: torch.randn(v.shape, generator=torch.Generator().manual_seed(
+        seeds[k])).to(dev, v.dtype) for k, v in specs.items()}
+    return lambda batch: dict(batch, **extra)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -56,7 +77,7 @@ def main(argv: list[str] | None = None) -> int:
         return 2
     try:
         cfg = get_config(args.arch)
-        lm.check_trainable(cfg)
+        check_trainable(cfg)
     except (NotImplementedError, KeyError) as e:
         print(f"error: {e.args[0]}", file=sys.stderr)
         return 2
@@ -69,7 +90,8 @@ def main(argv: list[str] | None = None) -> int:
     loop = LoopConfig(total_steps=args.steps, lr=args.lr,
                       ckpt_dir=args.ckpt_dir,
                       ckpt_every=args.ckpt_every or min(50, args.steps))
-    res = run(cfg, shape, loop, device=args.device)
+    res = run(cfg, shape, loop, device=args.device,
+              extra_batch_fn=extra_batch(cfg, shape, args.device))
     if not res.losses:
         print(f"[train] nothing to do: restored at step {res.final_step} of "
               f"{args.steps}")

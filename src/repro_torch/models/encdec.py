@@ -1,5 +1,5 @@
 """Encoder-decoder transformer (the port's ``repro.models.encdec``, the
-seamless-m4t-large-v2 backbone), serving half.
+seamless-m4t-large-v2 backbone), served and trained.
 
 The audio/text front end is a stub, as in the reference: the encoder
 consumes precomputed frame embeddings [B, S_enc, d_model]. Encoder =
@@ -15,13 +15,19 @@ card): the encoder's and the decoder's cross-attention without the
 causal mask, the decoder's self-attention with it. Decode runs the plain
 ``attention_core`` over both caches, writes the self-attention cache in
 place and only reads the cross-attention cache, filled at prefill.
-Training (``forward``, ``loss_fn``) is not ported yet.
+Training (``forward``, ``loss_fn``) runs its own encoder,
+``encode_trainable``: every attention of both stacks through the plain,
+differentiable ``attention_core`` (K5 is forward-only), each block under
+``cfg.remat`` (``lm._maybe_remat``), as the reference's scanned stacks.
 
 API:
   init_params(gen, cfg, device)                   → params
   params_from_jax(tree, cfg, device)              → params (reference weights)
   init_cache(cfg, batch, max_len, enc_len, device=) → cache
-  encode(params, frames, cfg)                     → encoder states
+  encode(params, frames, cfg)                     → encoder states (K5)
+  encode_trainable(params, frames, cfg)           → encoder states (plain)
+  forward(params, frames, tokens, cfg)            → logits
+  loss_fn(params, batch, cfg)                     → (ce, {"ce"})
   prefill(params, frames, tokens, cfg, max_len=)  → (last_logits, cache)
   decode_step(params, token, pos, cache, cfg)     → (logits, cache)
 """
@@ -31,9 +37,10 @@ import torch
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.kernels.backend import resolve_device
-from repro_torch.models.lm import (_dense_block_init, _layer, _tree_map,
-                                   attn_cache, cross_attn_prefill,
-                                   self_attn_prefill, tree_like)
+from repro_torch.models.lm import (_dense_block_init, _layer, _layers,
+                                   _maybe_remat, _tree_map, attn_cache,
+                                   cross_attn_prefill, self_attn_prefill,
+                                   tree_like)
 from repro_torch.nn import layers as L
 
 Params = dict
@@ -172,20 +179,73 @@ def decode_step(params: Params, token: torch.Tensor, pos: torch.Tensor,
     return L.unembed_apply(params["embed"], h, cfg), cache
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"encdec.{what}: enc-dec training is not ported yet (a later slice "
-        f"of ROADMAP.md, queue 1); the port serves it through "
-        f"encdec.prefill and encdec.decode_step")
+# ---------------------------------------------------------------------------
+# training: every attention through the plain attention_core
+# ---------------------------------------------------------------------------
+
+def _enc_block_fwd(h: torch.Tensor, bp: Params, cfg: LMConfig,
+                   positions: torch.Tensor) -> torch.Tensor:
+    h = h + L.self_attention(bp["attn"], L.rmsnorm(h, bp["ln1"],
+                                                   cfg.norm_eps),
+                             cfg, causal=False, positions=positions)
+    return h + L.mlp_apply(bp["mlp"], L.rmsnorm(h, bp["ln2"], cfg.norm_eps),
+                           cfg)
+
+
+def _dec_block_fwd(h: torch.Tensor, bp: Params, memory: torch.Tensor,
+                   cfg: LMConfig, positions: torch.Tensor) -> torch.Tensor:
+    h = h + L.self_attention(bp["attn"], L.rmsnorm(h, bp["ln1"],
+                                                   cfg.norm_eps),
+                             cfg, causal=True, positions=positions)
+    h = h + L.cross_attention(bp["xattn"], L.rmsnorm(h, bp["lnx"],
+                                                     cfg.norm_eps),
+                              memory, cfg)
+    return h + L.mlp_apply(bp["mlp"], L.rmsnorm(h, bp["ln2"], cfg.norm_eps),
+                           cfg)
+
+
+def encode_trainable(params: Params, frames: torch.Tensor, cfg: LMConfig
+                     ) -> torch.Tensor:
+    """frames [B, S_enc, D] → encoder states, differentiable: ``encode``'s
+    arithmetic with each block's attention through the plain
+    ``attention_core`` instead of K5, each block under ``cfg.remat``."""
+    check_encdec(cfg)
+    h = frames.to(L.cdt(cfg))
+    positions = torch.arange(h.shape[1], device=h.device)[None, :]
+    body = _maybe_remat(lambda h, bp: _enc_block_fwd(h, bp, cfg, positions),
+                        cfg)
+    for bp in _layers(params["enc_blocks"], cfg.encoder_layers):
+        h = body(h, bp)
+    return L.rmsnorm(h, params["enc_norm"], cfg.norm_eps)
+
+
+def _decoder(params: Params, frames: torch.Tensor, tokens: torch.Tensor,
+             cfg: LMConfig) -> torch.Tensor:
+    """The decoder's final normed states over ``tokens`` [B, S_dec],
+    attending to the encoded ``frames``."""
+    memory = encode_trainable(params, frames, cfg)
+    h = L.embed_apply(params["embed"], tokens, cfg)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    body = _maybe_remat(lambda h, bp, memory: _dec_block_fwd(
+        h, bp, memory, cfg, positions), cfg)
+    for bp in _layers(params["dec_blocks"], cfg.n_layers):
+        h = body(h, bp, memory)
+    return L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
 
 
 def forward(params: Params, frames: torch.Tensor, tokens: torch.Tensor,
             cfg: LMConfig) -> torch.Tensor:
-    """The training forward: not ported yet."""
-    _not_ported("forward")
+    """(frames [B, S_enc, D], tokens [B, S_dec]) → logits [B, S_dec, Vp]."""
+    return L.unembed_apply(params["embed"],
+                           _decoder(params, frames, tokens, cfg), cfg)
 
 
 def loss_fn(params: Params, batch: dict, cfg: LMConfig
             ) -> tuple[torch.Tensor, dict]:
-    """The training loss: not ported yet."""
-    _not_ported("loss_fn")
+    """Training loss over ``batch`` (``frames``, ``tokens``, ``labels``)
+    through the chunked CE: (ce, {"ce": ce}), no load-balance term, as in
+    the reference."""
+    check_encdec(cfg)
+    h = _decoder(params, batch["frames"], batch["tokens"], cfg)
+    ce = L.chunked_cross_entropy(params["embed"], h, batch["labels"], cfg)
+    return ce, {"ce": ce}

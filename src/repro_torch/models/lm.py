@@ -10,12 +10,10 @@
            cross-attention block onto the image embeddings)
 
 All five are served (``init_params``, ``params_from_jax``,
-``init_cache``, ``prefill``, ``decode_step``); ``dense`` without qk-norm
-or GeGLU, ``ssm``, ``moe`` and ``hybrid`` are also trained (``forward``,
-``backbone``, ``loss_fn``). The encoder-decoder family is
-``models/encdec.py``'s (it reuses these blocks); here it raises
-``NotImplementedError``, as do vlm, qk-norm and GeGLU when training is
-asked of them.
+``init_cache``, ``prefill``, ``decode_step``) and trained (``forward``,
+``backbone``, ``loss_fn``; the vlm's batch carries ``img_embed``). The
+encoder-decoder family is ``models/encdec.py``'s (it reuses these
+blocks); here it raises ``NotImplementedError``.
 
 Params keep the reference's tree: ``embed``, ``final_norm`` and
 ``blocks`` with every leaf stacked ``[n_layers, ...]`` (hybrid:
@@ -24,8 +22,11 @@ Params keep the reference's tree: ``embed``, ``final_norm`` and
 layers run in a Python loop over views of the stacks. Training
 (``forward``, ``loss_fn``) runs each block under ``cfg.remat``
 (``_maybe_remat``; a hybrid group of ``attn_every`` SSM blocks and the
-shared block after it runs under one wrapper, as the reference remats its
-scanned group), the attention through the plain ``attention_core``, MoE
+shared block after it, and a vlm group of ``cross_every - 1`` dense
+blocks and its cross-attention block, each run under one wrapper, as the
+reference remats its scanned group), every attention, the vlm's
+cross-attention onto ``img_embed`` included, through the plain
+``attention_core`` (K5 is forward-only), MoE
 layers through ``nn/moe.moe_apply`` at the config's capacity (drops and
 all; their load-balance losses summed in float32 into ``lb``) and the SSD
 scan through ``nn/ssm.ssm_block_apply`` (K6's forward on the card).
@@ -39,7 +40,7 @@ caches in place and only reads the cross-attention cache.
 API:
   init_params(gen, cfg, device)              → params
   params_from_jax(tree, cfg, device)         → params (reference weights)
-  forward(params, tokens, cfg)               → (logits, moe aux loss)
+  forward(params, tokens, cfg, img_embed=)   → (logits, moe aux loss)
   loss_fn(params, batch, cfg)                → (loss, {"ce", "lb"})
   init_cache(cfg, batch, max_len, device=)   → cache
   cache_batch_axes(cfg)                      → each cache leaf's batch axis
@@ -66,43 +67,21 @@ from repro_torch.utils import tree_map
 
 Params = dict
 SERVED = ("dense", "ssm", "moe", "hybrid", "vlm")
-TRAINED = ("dense", "ssm", "moe", "hybrid")
 
 
 def check_servable(cfg: LMConfig) -> None:
     """Raise ``NotImplementedError`` for a config this module cannot
-    serve: an encoder-decoder (``models/encdec.py`` serves it) or an
-    unknown family."""
+    serve or train: an encoder-decoder (``models/encdec.py`` serves and
+    trains it) or an unknown family."""
     if cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name}: an encoder-decoder config is served by "
-            f"models/encdec.py (encdec.prefill, encdec.decode_step), not "
-            f"by models/lm.py")
+            f"{cfg.name}: an encoder-decoder config is served and trained "
+            f"by models/encdec.py (encdec.prefill, encdec.decode_step, "
+            f"encdec.loss_fn), not by models/lm.py")
     if cfg.family not in SERVED:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not a decoder family "
             f"of models/lm.py (it serves {SERVED})")
-
-
-def check_trainable(cfg: LMConfig) -> None:
-    """Raise ``NotImplementedError`` for a config the port cannot train:
-    vlm, enc-dec, and qk-norm or GeGLU in any family."""
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: training the enc-dec family is not ported yet "
-            f"(models/encdec.py serves it; its training is a later slice "
-            f"of ROADMAP.md, queue 1)")
-    check_servable(cfg)
-    if cfg.family not in TRAINED:
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family!r} family is not ported "
-            f"yet (the port trains {TRAINED}; vlm training, with "
-            f"img_embed in the batch, is a later slice of ROADMAP.md, "
-            f"queue 1)")
-    if cfg.qk_norm or cfg.act != "silu":
-        raise NotImplementedError(
-            f"{cfg.name}: training with qk-norm or GeGLU is not ported yet "
-            f"(they are served; ROADMAP.md, queue 1)")
 
 
 def _tree_map(fn, tree):
@@ -343,13 +322,26 @@ def _ssm_block_fwd(h: torch.Tensor, bp: Params, cfg: LMConfig
         bp["ssm"], L.rmsnorm(h, bp["ln"], cfg.norm_eps), cfg)
 
 
+def _cross_block_fwd(h: torch.Tensor, bp: Params, memory: torch.Tensor,
+                     cfg: LMConfig) -> torch.Tensor:
+    """A cross-attention block onto ``memory`` (the image embeddings)
+    through the plain ``attention_core``, then its MLP."""
+    h = h + L.cross_attention(bp["xattn"], L.rmsnorm(h, bp["ln1"],
+                                                     cfg.norm_eps),
+                              memory, cfg)
+    return h + L.mlp_apply(bp["mlp"], L.rmsnorm(h, bp["ln2"], cfg.norm_eps),
+                           cfg)
+
+
 def backbone(params: Params, h: torch.Tensor, cfg: LMConfig,
-             positions: torch.Tensor | None = None
+             positions: torch.Tensor | None = None,
+             img_embed: torch.Tensor | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the layer stack. Returns (hidden, total moe aux loss): the sum
     of the MoE layers' load-balance losses in float32, 0 without MoE (as
-    in the reference, a hybrid's shared block adds none)."""
-    check_trainable(cfg)
+    in the reference, a hybrid's shared block adds none). The vlm needs
+    ``img_embed`` [B, n_image_tokens, vision_dim]."""
+    check_servable(cfg)
     lb = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.family in ("dense", "moe"):
         def body(h, lb, bp):
@@ -370,18 +362,34 @@ def backbone(params: Params, h: torch.Tensor, cfg: LMConfig,
         for gp in _layers(params["blocks"], n_groups):
             h = group(h, gp, params["shared"])
         return h, lb
+    if cfg.family == "vlm":
+        if img_embed is None:
+            raise ValueError(f"{cfg.name}: a vlm batch needs img_embed")
+        n_groups, k_blocks = _groups(cfg)
+
+        def group(h, gp, xp, memory):
+            for bp in _layers(gp, k_blocks):
+                h = _dense_block_fwd(h, bp, cfg, positions)[0]
+            return _cross_block_fwd(h, xp, memory, cfg)
+        group = _maybe_remat(group, cfg)
+        for gp, xp in zip(_layers(params["blocks"], n_groups),
+                          _layers(params["cross_blocks"], n_groups)):
+            h = group(h, gp, xp, img_embed)
+        return h, lb
     body = _maybe_remat(partial(_ssm_block_fwd, cfg=cfg), cfg)
     for bp in _layers(params["blocks"], cfg.n_layers):
         h = body(h, bp)
     return h, lb
 
 
-def forward(params: Params, tokens: torch.Tensor, cfg: LMConfig
+def forward(params: Params, tokens: torch.Tensor, cfg: LMConfig,
+            img_embed: torch.Tensor | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, S] → (logits [B, S, Vp], moe aux loss)."""
-    check_trainable(cfg)
+    """tokens [B, S] (and the vlm's ``img_embed``) → (logits [B, S, Vp],
+    moe aux loss)."""
+    check_servable(cfg)
     h = L.embed_apply(params["embed"], tokens, cfg)
-    h, lb = backbone(params, h, cfg)
+    h, lb = backbone(params, h, cfg, img_embed=img_embed)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     return L.unembed_apply(params["embed"], h, cfg), lb
 
@@ -389,10 +397,10 @@ def forward(params: Params, tokens: torch.Tensor, cfg: LMConfig
 def loss_fn(params: Params, batch: dict, cfg: LMConfig,
             lb_coef: float = 0.01) -> tuple[torch.Tensor, dict]:
     """Training loss through the chunked CE (no [B, S, V] logits kept).
-    Returns (loss, {"ce", "lb"})."""
-    check_trainable(cfg)
+    The vlm reads ``batch["img_embed"]``. Returns (loss, {"ce", "lb"})."""
+    check_servable(cfg)
     h = L.embed_apply(params["embed"], batch["tokens"], cfg)
-    h, lb = backbone(params, h, cfg)
+    h, lb = backbone(params, h, cfg, img_embed=batch.get("img_embed"))
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
     ce = L.chunked_cross_entropy(params["embed"], h, batch["labels"], cfg)
     return ce + lb_coef * lb, {"ce": ce, "lb": lb}

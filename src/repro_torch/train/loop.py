@@ -27,8 +27,7 @@ from repro_torch.configs.base import LMConfig, ShapeConfig
 from repro_torch.data.tokens import TokenLoader, TokenStreamConfig
 from repro_torch.ft import PreemptionGuard, StragglerMonitor
 from repro_torch.kernels.backend import resolve_device
-from repro_torch.models import lm
-from repro_torch.train.steps import build_train_step
+from repro_torch.train.steps import build_train_step, model_of
 
 PyTree = Any
 
@@ -65,9 +64,10 @@ class LoopResult:
 def init_train_state(cfg: LMConfig, opt, device: torch.device
                      ) -> tuple[PyTree, PyTree]:
     """Params drawn from seed 0 on ``device`` (a CUDA generator draws on
-    the card) and their optimizer state."""
-    params = lm.init_params(torch.Generator(device=device).manual_seed(0),
-                            cfg, device)
+    the card; ``encdec.init_params`` for an enc-dec config) and their
+    optimizer state."""
+    params = model_of(cfg).init_params(
+        torch.Generator(device=device).manual_seed(0), cfg, device)
     return params, opt.init(params)
 
 

@@ -4,7 +4,10 @@
 opt_state, batch) → (params, opt_state, metrics)`` runs ``loss_fn``, its
 backward pass, global-norm clipping and AdamW; ``specs`` gives the
 batch's shapes and dtypes as ``meta`` tensors (the reference's
-``ShapeDtypeStruct``s, without shardings). The reference's
+``ShapeDtypeStruct``s, without shardings): tokens and labels, plus the
+vlm's ``img_embed`` and the enc-dec's ``frames`` in the compute dtype.
+The loss is ``encdec.loss_fn`` for an enc-dec config and ``lm.loss_fn``
+for every other (``model_of``, ``_loss_for``). The reference's
 ``param_structs`` / ``opt_structs`` carry ``NamedSharding``s and come with
 the sharding slice.
 """
@@ -16,7 +19,8 @@ import torch
 
 from repro_torch.configs.base import LMConfig, ShapeConfig
 from repro_torch.kernels.backend import resolve_device
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
+from repro_torch.nn.layers import cdt
 from repro_torch.optim import adamw, clip_by_global_norm_
 from repro_torch.optim.optimizers import apply_updates
 from repro_torch.utils import tree_map, tree_paths, unflatten_dict
@@ -24,12 +28,40 @@ from repro_torch.utils import tree_map, tree_paths, unflatten_dict
 PyTree = Any
 
 
+def model_of(cfg: LMConfig):
+    """The model module of ``cfg``: ``models/encdec`` for an enc-dec
+    config, ``models/lm`` for every other."""
+    return encdec if cfg.is_encdec else lm
+
+
+def check_trainable(cfg: LMConfig) -> None:
+    """Raise ``NotImplementedError`` for a config neither model module
+    trains (a family ``models/lm`` does not know)."""
+    if model_of(cfg) is lm:
+        lm.check_servable(cfg)
+
+
+def _loss_for(cfg: LMConfig):
+    return model_of(cfg).loss_fn
+
+
 def make_batch_specs(cfg: LMConfig, shape: ShapeConfig) -> dict:
-    """``meta`` tensors of one global training batch's shapes and dtypes."""
-    lm.check_trainable(cfg)
+    """``meta`` tensors of one global training batch's shapes and dtypes:
+    ``tokens`` and ``labels`` [B, S] int64, the vlm's ``img_embed`` [B,
+    n_image_tokens, vision_dim] and the enc-dec's ``frames`` [B, S,
+    d_model] in the compute dtype."""
+    check_trainable(cfg)
     B, S = shape.global_batch, shape.seq_len
-    return {k: torch.empty((B, S), dtype=torch.int64, device="meta")
-            for k in ("tokens", "labels")}
+    out = {k: torch.empty((B, S), dtype=torch.int64, device="meta")
+           for k in ("tokens", "labels")}
+    if cfg.family == "vlm":
+        out["img_embed"] = torch.empty(
+            (B, cfg.n_image_tokens, cfg.vision_dim), dtype=cdt(cfg),
+            device="meta")
+    if cfg.is_encdec:
+        out["frames"] = torch.empty((B, S, cfg.d_model), dtype=cdt(cfg),
+                                    device="meta")
+    return out
 
 
 def build_train_step(cfg: LMConfig, shape: ShapeConfig, lr: float = 3e-4,
@@ -55,11 +87,12 @@ def build_train_step(cfg: LMConfig, shape: ShapeConfig, lr: float = 3e-4,
         raise ValueError(f"grad_accum {grad_accum} does not divide the "
                          f"global batch {B}")
     specs = make_batch_specs(cfg, shape)
+    loss_fn = _loss_for(cfg)
 
     def grads_of(params, batch):
         live = tree_map(lambda t: t.detach().requires_grad_(), params)
         paths, leaves = zip(*tree_paths(live))
-        loss, metrics = lm.loss_fn(live, batch, cfg)
+        loss, metrics = loss_fn(live, batch, cfg)
         grads = torch.autograd.grad(loss, leaves)
         return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
                 unflatten_dict(dict(zip(paths, grads))))

@@ -1,7 +1,9 @@
 """PyTorch port: the CUDA kernels (streaming fold, P²M conv, LIF, flash
 attention, SSD) against their plain versions, on the card, the LM
 training path around K6 (``ssd_trainable``, remat, the donated step; MoE
-with drops and the hybrid's groups against the CPU) and
+with drops and the hybrid's groups against the CPU; one train step of
+the qk-norm, GeGLU, padded-head, vlm and enc-dec smoke variants against
+the CPU, with no K5 launch) and
 the served LM families' smoke variants (the cross-attention ones through
 the model API) on the card against the CPU.
 Imports no JAX, so it runs on the machine with the card:
@@ -743,23 +745,30 @@ def test_cuda_ssd_trainable_vs_the_plain_route(cuda_device, dtype, b, s, h,
 
 def _lm_train_case(arch, compute="float32", **kw):
     """A smoke variant's config, shape (2 x 128), CPU params and 2 batches
-    on the card. MoE's embedding rows are shifted by their standard
+    on the card, each with its own seeded img_embed (vlm) or frames
+    (enc-dec). MoE's embedding rows are shifted by their standard
     deviation: the shared direction sends most tokens to the same experts,
     so the capacity factor of 1.25 drops choices in every layer."""
     from dataclasses import replace
     from repro_torch.configs import get_config, smoke_variant
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.tokens import TokenStreamConfig, sample_batch
-    from repro_torch.models import lm
+    from repro_torch.models import encdec, lm
+    from repro_torch.train.steps import make_batch_specs
     cfg = replace(smoke_variant(get_config(arch)), compute_dtype=compute,
                   **kw)
     shape = ShapeConfig("t", "train", 128, 2)
-    params = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    init = encdec.init_params if cfg.is_encdec else lm.init_params
+    params = init(torch.Generator().manual_seed(0), cfg, "cpu")
     if cfg.n_experts:
         emb = params["embed"]["embedding"]
         emb += emb.std()
-    batches = [{k: v.cuda() for k, v in sample_batch(TokenStreamConfig(
-        cfg.vocab_size, 128, 2), i).items()} for i in range(2)]
+    extra = {k: v for k, v in make_batch_specs(cfg, shape).items()
+             if k not in ("tokens", "labels")}
+    batches = [{k: v.cuda() for k, v in dict(sample_batch(TokenStreamConfig(
+        cfg.vocab_size, 128, 2), i), **{k: torch.randn(
+            v.shape, generator=torch.Generator().manual_seed(10 + i)).to(
+            v.dtype) for k, v in extra.items()}).items()} for i in range(2)]
     return cfg, shape, params, batches
 
 
@@ -895,6 +904,39 @@ def test_cuda_hybrid_train_steps_match_cpu(cuda_device, remat):
     per_step = cfg.n_layers * (2 if remat == "full" else 1)
     assert got[2] == per_step * len(batches) and want[2] == 0
     _close_train(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kw", [
+    ("qwen3-32b", {}), ("gemma-7b", {}),
+    ("phi4-mini-3.8b", {"tp_multiple": 8}),
+    ("llama-3.2-vision-90b", {"n_layers": 4}),
+    ("seamless-m4t-large-v2", {})],
+    ids=["qwen3-32b", "gemma-7b", "phi4-mini-3.8b-tp8",
+         "llama-3.2-vision-90b", "seamless-m4t-large-v2"])
+def test_cuda_train_step_matches_cpu(cuda_device, arch, kw):
+    """One float32 train step of each family trained since the dense and
+    ssm ones (qk-norm, GeGLU, phi4 with its heads padded 4 -> 8, the vlm
+    at two groups with its img_embed, the enc-dec with its frames) on the
+    card against the CPU from the same params and batch: loss within 1e-4
+    and gnorm within 1e-3 (relative), params and moments by
+    tests/adam_close.py (the enc-dec with its exemption, as chip_smoke.py's
+    LM_TRAIN_ADAM_EXEMPT: AdamW's ill-conditioned elements, their
+    gradients held per element); no K5 or K6 launch on the card (training
+    attends through the plain attention_core)."""
+    from adam_close import close_state
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.utils import tree_paths
+    cfg, shape, params, batches = _lm_train_case(arch, **kw)
+    k5 = dict(fa.LAUNCHES)
+    got, want = (_train_on(d, cfg, shape, params, batches[:1])
+                 for d in ("cuda", "cpu"))
+    assert fa.LAUNCHES == k5 and got[2] == want[2] == 0
+    (l1, g1), (l2, g2) = got[0][0], want[0][0]
+    assert abs(l1 - l2) <= 1e-4 * abs(l2) and abs(g1 - g2) <= 1e-3 * g2
+    close_state({k: v.numpy() for k, v in tree_paths(got[1])},
+                {k: v.numpy() for k, v in tree_paths(want[1])}, 1, 1e-3, {},
+                exempt=cfg.is_encdec)
 
 
 @pytest.mark.cuda

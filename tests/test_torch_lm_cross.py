@@ -4,7 +4,8 @@ enc-dec (seamless-m4t), against the JAX package on the same numpy inputs:
 plain version without the causal mask at Sq != Skv, the vlm prefill and
 decode (one and two groups, per-row positions), the enc-dec encoder,
 prefill and decode, bf16 serving numerics for both, and what stays
-refused (training both, ``SlotServer`` and the serve launcher for both).
+refused (training both on a sharded mesh, ``SlotServer`` and the serve
+launcher for both).
 Float32 compute unless a test says otherwise; the reference's smoke
 weights carried across by ``params_from_jax``."""
 from __future__ import annotations
@@ -328,18 +329,23 @@ def test_bf16_prefill_then_decode_matches_reference(arch):
 # ---------------------------------------------------------------------------
 
 def test_training_both_families_is_refused(tmp_path, capsys):
+    """Both families train on one device now
+    (tests/test_torch_lm_train_cross.py); the training launcher still
+    refuses them on a sharded mesh (--production-mesh, --multi-pod: exit
+    2, nothing written), and the serve launcher still refuses both
+    (SlotServer takes token prompts alone)."""
+    from repro_torch.launch import serve
     from repro_torch.launch import train as launcher
-    assert launcher.main(["--arch", ENCDEC, "--smoke", "--ckpt-dir",
-                          str(tmp_path)]) == 2
-    err = capsys.readouterr().err
-    assert err.startswith("error:") and "not ported yet" in err
-    assert not list(tmp_path.iterdir())
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        lm.loss_fn({}, {}, smoke_variant(get_config(VLM)))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        encdec.loss_fn({}, {}, smoke_variant(get_config(ENCDEC)))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        encdec.forward({}, None, None, smoke_variant(get_config(ENCDEC)))
+    for arch in (VLM, ENCDEC):
+        for flag in ("--production-mesh", "--multi-pod"):
+            ck = tmp_path / f"{arch}{flag}"
+            assert launcher.main(["--arch", arch, "--smoke", flag,
+                                  "--ckpt-dir", str(ck)]) == 2
+            err = capsys.readouterr().err
+            assert err.startswith("error:") and "queue 1 item 2a" in err
+            assert not ck.exists()
+        assert serve.main(["--arch", arch, "--smoke", "--device", "cpu"]) == 2
+        assert "SlotServer" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("arch", [VLM, ENCDEC])

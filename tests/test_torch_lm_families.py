@@ -5,7 +5,8 @@ numpy inputs: the layers, ``moe_apply``, prefill and decode, the slot
 server, and K5's plain version at head dims 112 and 256. Float32 compute
 unless a test says otherwise; the reference's smoke weights carried across
 by ``params_from_jax``. Training moe and hybrid is held in
-tests/test_torch_lm_train_families.py; GeGLU and qk-norm stay refused."""
+tests/test_torch_lm_train_families.py, GeGLU, qk-norm and padded heads in
+tests/test_torch_lm_train_dense.py."""
 from __future__ import annotations
 
 import dataclasses
@@ -440,17 +441,18 @@ def test_training_launcher_refuses_moe(arch, tmp_path, capsys):
     assert not list(tmp_path.iterdir())
 
 
-def test_moe_and_hybrid_training_are_refused():
-    """What training still refuses beside the now-trained moe and hybrid
-    families: GeGLU (gemma) and qk-norm (qwen3), each naming ROADMAP.md's
-    queue 1; granite and zamba2 pass the same check."""
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.train.steps import make_batch_specs
-    for arch in ("granite-moe-1b-a400m", "zamba2-7b"):
-        lm.check_trainable(smoke_variant(get_config(arch)))
-    for arch in ("gemma-7b", "qwen3-32b"):
-        cfg = smoke_variant(get_config(arch))
-        with pytest.raises(NotImplementedError, match="queue 1"):
-            lm.loss_fn({}, {}, cfg)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            make_batch_specs(cfg, ShapeConfig("t", "train", 8, 2))
+def test_moe_and_hybrid_training_are_refused(tmp_path, capsys):
+    """Training refuses no family now: each of the ten configs at full
+    width passes the trainability check (moe, hybrid, GeGLU, qk-norm,
+    padded heads, vlm, enc-dec). What stays refused is a sharded mesh:
+    the launcher exits 2 for each with --multi-pod, writing nothing."""
+    from repro_torch.configs import list_archs
+    from repro_torch.launch import train as launcher
+    from repro_torch.train.steps import check_trainable
+    for arch in list_archs():
+        check_trainable(get_config(arch))
+        assert launcher.main(["--arch", arch, "--multi-pod", "--ckpt-dir",
+                              str(tmp_path)]) == 2
+        err = capsys.readouterr().err
+        assert err.startswith("error:") and "not ported yet" in err
+    assert not list(tmp_path.iterdir())

@@ -289,14 +289,28 @@ def test_remat_gives_the_same_bits(arch):
 
 
 def test_other_families_are_refused():
-    """The families training still refuses, each naming ROADMAP.md's
-    queue 1: the vlm (its batch carries img_embed) and qk-norm (qwen3)."""
-    for arch in ("llama-3.2-vision-90b", "qwen3-32b"):
+    """Every family trains now: all ten configs pass the trainability
+    check and get batch specs (the vlm's with img_embed, the enc-dec's
+    with frames). What stays refused is lm.loss_fn for an enc-dec config,
+    which names encdec.loss_fn, and encdec.loss_fn for a decoder-only
+    one."""
+    from repro_torch.configs import list_archs
+    from repro_torch.models import encdec
+    from repro_torch.train.steps import check_trainable
+    extra = {}
+    for arch in list_archs():
         cfg = smoke_variant(get_config(arch))
-        with pytest.raises(NotImplementedError, match="queue 1"):
-            lm.loss_fn({}, {}, cfg)
-        with pytest.raises(NotImplementedError, match="queue 1"):
-            make_batch_specs(cfg, ShapeConfig("t", "train", 8, 2))
+        check_trainable(cfg)
+        extra[arch] = set(make_batch_specs(
+            cfg, ShapeConfig("t", "train", 8, 2))) - {"tokens", "labels"}
+    assert len(extra) == 10
+    assert extra.pop("llama-3.2-vision-90b") == {"img_embed"}
+    assert extra.pop("seamless-m4t-large-v2") == {"frames"}
+    assert not any(extra.values())
+    with pytest.raises(NotImplementedError, match="encdec.loss_fn"):
+        lm.loss_fn({}, {}, smoke_variant(get_config("seamless-m4t-large-v2")))
+    with pytest.raises(NotImplementedError, match="models/lm.py"):
+        encdec.loss_fn({}, {}, smoke_variant(get_config("qwen3-32b")))
 
 
 # ---------------------------------------------------------------------------

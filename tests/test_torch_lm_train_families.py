@@ -116,9 +116,10 @@ def _port_grads(params, batch, cfg):
 def test_moe_and_hybrid_are_trainable():
     """check_trainable admits both families; the batch specs are the
     tokens and labels alone, as for dense."""
+    from repro_torch.train.steps import check_trainable
     for arch in ARCHS:
         cfg = _cfgs(arch)[1]
-        lm.check_trainable(cfg)
+        check_trainable(cfg)
         specs = make_batch_specs(cfg, ShapeConfig("t", "train", 8, 2))
         assert {k: tuple(v.shape) for k, v in specs.items()} == {
             "tokens": (2, 8), "labels": (2, 8)}

@@ -350,8 +350,9 @@ def test_launcher_trains_checkpoints_and_resumes(tmp_path, capsys):
 @pytest.mark.parametrize("argv,what", [
     (["--production-mesh"], "sharded step builders"),
     (["--multi-pod"], "sharded step builders"),
-    (["--arch", "gemma-7b"], "not ported yet"),
-    (["--arch", "llama-3.2-vision-90b"], "not ported yet"),
+    (["--arch", "seamless-m4t-large-v2", "--production-mesh"],
+     "not ported yet"),
+    (["--arch", "llama-3.2-vision-90b", "--multi-pod"], "not ported yet"),
     (["--arch", "no-such-arch"], "unknown arch"),
 ])
 def test_launcher_refuses_what_is_not_ported(argv, what, tmp_path, capsys):
