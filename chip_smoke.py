@@ -184,11 +184,11 @@ runs phases 1, 2 and phase 8's serve of ARCH alone at N layers (of
 ``LM_ARCHS``), to measure what a depth cut of ``LM_DEPTH`` saves.
 
 ``python3 chip_smoke.py --measure-tree ROOT`` runs none of this: it times
-K1, the MAC-mode fold_chunk and K4 as the checkout at ROOT has them (see
-``measure_tree``), to compare two commits in one call.
-``python3 chip_smoke.py --ptxas`` runs none of it either: it prints each
-kernel's registers and spills as ``nvcc -Xptxas -v`` reports them (see
-``ptxas_report``).
+K1, the MAC-mode fold_chunk, K4 and K5's bf16 serving shapes as the
+checkout at ROOT has them (see ``measure_tree``), to compare two commits
+in one call. ``python3 chip_smoke.py --ptxas`` runs none of it either: it
+prints each kernel's registers and spills as ``nvcc -Xptxas -v`` reports
+them, and any warning of ptxas (see ``ptxas_report``).
 """
 from __future__ import annotations
 
@@ -595,9 +595,10 @@ def fa_limit(want, abs_attn, dtype, torch):
 
 
 # K5's cases: (B, Sq, Skv, H, KV, d, causal, timed row or None). bf16
-# runs the wgmma kernel at d 64 and 128 and the mma.sync kernel at d 16,
-# 32, 112 and 256; the padded cases put Sq off the 128-row tile, and with
-# B 2 a row read or stored past Sq would land in the next batch. The
+# runs the wgmma kernel at d 64, 112 (d 128's tiles over a zero-filled
+# pad), 128 and 256 (64-key kv tiles) and the mma.sync kernel at d 16 and
+# 32; the padded cases put Sq off the 128-row tile, and with B 2 a row
+# read or stored past Sq would land in the next batch. The
 # non-causal cross cases put Skv off the 128-key tile (1601 = 12 x 128 +
 # 65 image tokens; 161 at B 2, where a key read past Skv would be the next
 # batch's)
@@ -615,6 +616,8 @@ FA_CASES = (
     (1, LM_PROMPT, LM_PROMPT, 16, 16, 64, False, "_encoder"),
     (1, 100, 100, 16, 8, 112, True, None),
     (1, 100, 100, 16, 8, 256, True, None),
+    (2, 100, 100, 16, 8, 112, True, None),
+    (2, 100, 100, 16, 8, 256, True, None),
     (1, 100, 100, 16, 8, 128, True, None),
     (2, 100, 100, 16, 8, 128, True, None),
     (2, 100, 100, 16, 8, 32, True, None),
@@ -633,8 +636,8 @@ def phase_flash_attention(torch, ops, fa_ref, flush) -> dict:
     prefill (q [1, 2048, 16, 256]), llama-3.2-vision's cross-attention (q
     [1, 2048, 64, 128] onto k/v [1, 1601, 16, 128], G 4, non-causal),
     seamless-m4t's encoder (q = k = v [1, 2048, 16, 64], non-causal), and
-    padded shapes (Sq 100, G 2, B 1 and 2; d 112 and 256 too; Skv 161 at B
-    2, non-causal). Each is held per element against attention_ref on the
+    padded shapes (Sq 100, G 2, B 1 and 2; d 112 and 256 at both B; Skv
+    161 at B 2, non-causal). Each is held per element against attention_ref on the
     same values reshaped to [B H, S, d] (K/V repeated to every query
     head); the 2048-token ones are timed beside the op's plain version
     and scaled_dot_product_attention. Rows are keyed by type and case, the
@@ -3625,7 +3628,9 @@ def measure_tree(torch) -> None:
     call: K1 on the physics batch for the three paper circuits and for one
     (CUDA events, as phase_p2m_conv), one fold_chunk(mode="mac") call's
     device time at S 1 and 4 (torch.profiler), and K4 at its two timed
-    shapes in both types (CUDA events, as phase_lif)."""
+    shapes in both types (CUDA events, as phase_lif), and K5 in bf16 at
+    the causal serving shapes of d 128, 112 and 256 (CUDA events, as
+    phase_flash_attention)."""
     from repro_torch.configs import p2m_dvs
     from repro_torch.core import codesign, leakage
     from repro_torch.data import events as ev_mod
@@ -3634,7 +3639,7 @@ def measure_tree(torch) -> None:
     from repro_torch.kernels.backend import resolve_device
     from repro_torch.stream import deploy
     resolve_device("cuda")
-    _build.build(["p2m_conv", "stream_fold", "lif"])
+    _build.build(["p2m_conv", "stream_fold", "lif", "flash_attention"])
     cfg = p2m_dvs.CONFIG
     ev, _ = ev_mod.sample_batch(torch.Generator().manual_seed(0),
                                 p2m_dvs.DATA, PHYS_B, cfg.p2m.t_intg_ms,
@@ -3664,6 +3669,15 @@ def measure_tree(torch) -> None:
             ms = time_ms(lambda: lif.lif_cuda(x), torch, flush=flush)
             print(f"[tree {tree}] lif T={T} N={N} "
                   f"{str(dtype).split('.')[-1]}: {ms:.4f} ms")
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    gen = torch.Generator().manual_seed(3)
+    for H, d in ((16, 128), (32, 112), (16, 256)):
+        q, k, v = (torch.randn((1, LM_PROMPT, H, d), generator=gen)
+                   .to("cuda", torch.bfloat16) for _ in range(3))
+        ms = time_ms(lambda: fa.gqa_attention_cuda(q, k, v, causal=True),
+                     torch, flush=flush)
+        print(f"[tree {tree}] flash_attention bf16 q [1, {LM_PROMPT}, {H}, "
+              f"{d}] causal: {ms:.4f} ms")
 
 
 def _drop_args(sig: str) -> str:
@@ -3681,7 +3695,8 @@ def ptxas_report() -> None:
     """``--ptxas``: compile each source under src/repro_torch/csrc with
     the build's flags and ``-Xptxas -v`` (to an object file in a temporary
     directory) and print, per kernel, its registers, stack frame and
-    spill bytes."""
+    spill bytes, and every warning of ptxas (an ignored ``setmaxnreg``
+    says so there)."""
     import re
     import tempfile
     from repro_torch.kernels import _build
@@ -3698,6 +3713,8 @@ def ptxas_report() -> None:
             fail(f"nvcc {name}.cu: {out.stderr[-2000:]}")
         kernel, frame = None, ""
         for line in out.stderr.splitlines():
+            if line.startswith("ptxas") and "warning" in line:
+                print(f"[ptxas] {name}.cu: {line.strip()}")
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 kernel = m.group(1)
@@ -4009,8 +4026,9 @@ def main() -> int:
             "launches": phys[row["name"]] + files.get(row["name"], 0),
             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms")}})
-    # K5 by mask and head dim (d 64 and 128 take the wgmma route, 112 and
-    # 256 the mma.sync one), and K6 by shape: the launches each serve's
+    # K5 by mask and head dim (every served d takes the wgmma route: d 112
+    # over a zero-filled pad to 128, d 256 with 64-key kv tiles; each has
+    # its own row), and K6 by shape: the launches each serve's
     # counters read, on the row timed at its prefill's shape, plus
     # training's. Non-causal launches ran at the vlm cross shape (d 128)
     # or at the seamless encoder's (d 64, its decoder cross alike)

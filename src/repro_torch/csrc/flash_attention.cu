@@ -22,25 +22,22 @@
 // shared memory; one kv buffer holds a tile's K, then its V; P goes
 // through shared memory.
 //
-// bfloat16, d 64 and 128 (wg::flash_wgmma_kernel): the Hopper design, see
-// its own note below. One block per (128 query rows, b * H + h), two
-// consumer warpgroups and a TMA producer warp; both products are wgmma.
+// bfloat16, d 64, 112, 128 and 256 (wg::flash_wgmma_kernel): the Hopper
+// design, see its own note below. One block per (128 query rows, b * H +
+// h), two consumer warpgroups and a TMA producer; both products are
+// wgmma. d 112 runs d 128's tiles over a zero-filled pad of 16 columns;
+// d 256 takes 64-key kv tiles, so that Q and a two-stage K/V ring fit in
+// shared memory.
 //
-// bfloat16, d 16, 32, 112 and 256 (flash_bf16_kernel): mma.sync m16n8k16
-// with one block per (64 query rows, b * H + h), 4 warps of 16 rows. At d
-// 16 and 32 a 64-row wgmma tile would be mostly padding of the reduction
+// bfloat16, d 16 and 32 (flash_bf16_kernel; no served config has them):
+// mma.sync m16n8k16 with one block per (64 query rows, b * H + h), 4 warps
+// of 16 rows. A 64-row wgmma tile would be mostly padding of the reduction
 // and a TMA box row would be 32 or 64 bytes, so the warp-level products
-// stay. The wgmma route does not take d 112 (zamba2's shared block: a
-// 224-byte row is wider than the 128-byte swizzle and not a whole number
-// of its 64-column chunks) or d 256 (gemma: a two-stage ring of 128-key K
-// and V tiles is 256 KB, more than an SM's 227 KB of shared memory), so
-// these two take this route too; at d 256 Q's fragments are read from
-// shared memory at each k-step rather than kept in registers. Below d 256
-// each warp keeps its 16 rows of Q as A fragments in registers; S = Q K^T lands
-// in C fragments (a thread holds rows g and g + 8, g = lane / 4, and 2
-// keys of every 8), whose layout is that of the A fragment of P for the PV
-// product, so P never leaves the registers. K and V are staged row-major
-// by 16-byte loads; a B fragment of V is one ldmatrix.trans.
+// stay. Each warp keeps its 16 rows of Q as A fragments in registers; S =
+// Q K^T lands in C fragments (a thread holds rows g and g + 8, g = lane /
+// 4, and 2 keys of every 8), whose layout is that of the A fragment of P
+// for the PV product, so P never leaves the registers. K and V are staged
+// row-major by 16-byte loads; a B fragment of V is one ldmatrix.trans.
 //
 // Common to all three: the kv tiles are walked in order up to the causal
 // limit of the block's last row (tiles masked for every row are never
@@ -59,15 +56,21 @@
 // Bound: operations. Causal at B*H = 16, S = 2048, d = 128 the work is
 // ~17 GFLOP against ~34 MB of q, k, v and o in bfloat16: tensor-core work
 // (989 TFLOP/s bf16 dense, 17.4 us) ahead of the bytes (10 us at 3.35
-// TB/s). The earlier mma.sync kernel at that shape reached 8 % of the bound:
-// a block staged each K/V tile with every thread between two
-// __syncthreads (no copy overlapped a product), issued warp-level
-// mma.sync, masked every element of every tile and launched its longest
-// causal blocks last. The wgmma kernel answers each point: TMA loads in a
-// two-stage ring run ahead of the products, wgmma reads Q and K straight
-// from swizzled shared memory, only a tile on the diagonal or across
-// kv_len is masked, and the grid starts the longest blocks first. In
-// float32 the CUDA cores' 67 TFLOP/s bound it.
+// TB/s). At the other two serving shapes, causal at S = 2048: d 112 at 32
+// heads (zamba2-7b's shared block) 30.1 GFLOP against 58.7 MB, 30.4 us;
+// d 256 at 16 heads (gemma-7b) 34.4 GFLOP against 67.1 MB, 34.8 us. The
+// mma.sync kernel reached 8 % of the bound at d 128, and 9-10 % at d 112
+// and 256 (0.3254 and 0.3402 ms on an H100 80GB HBM3 at 700 W, beside
+// 0.0862 and 0.0961 ms for scaled_dot_product_attention): a block staged
+// each K/V tile with every thread between two __syncthreads (no copy
+// overlapped a product), issued warp-level mma.sync, masked every element
+// of every tile and launched its longest causal blocks last; at d 256 it
+// also re-read Q's fragments from shared memory at every k-step. The
+// wgmma kernel answers each point: TMA loads in a two-stage ring, issued
+// by a producer warp, run ahead of the products; wgmma reads Q and K
+// straight from swizzled shared memory (no fragment copies at any d); only
+// a tile on the diagonal or across kv_len is masked; and the grid starts
+// the longest blocks first. In float32 the CUDA cores' 67 TFLOP/s bound it.
 #include <cstdint>
 #include <type_traits>
 #include <cuda_bf16.h>
@@ -340,21 +343,14 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   stage<bf16, D, LQ>(qs, qb, q0, sq, q_stride);
   __syncthreads();
   const int r0 = warp * 16;         // the warp's first row in the tile
-  // Q's A fragments stay in registers up to d 128. At d 256 they would
-  // take 64 registers beside the output's 128, so each k-step reads its
-  // fragment from the Q tile in shared memory instead.
-  constexpr bool kQInRegs = D <= 128;
-  const auto q_frag = [&](uint32_t (&a)[4], int kq) {
-    const bf16* p = qs + (r0 + g) * LQ + kq * 16 + 2 * t;
-    a[0] = ld32(p);
-    a[1] = ld32(p + 8 * LQ);
-    a[2] = ld32(p + 8);
-    a[3] = ld32(p + 8 * LQ + 8);
-  };
-  uint32_t qa[kQInRegs ? KS : 1][4];
-  if constexpr (kQInRegs) {
+  uint32_t qa[KS][4];               // Q's A fragments, kept in registers
 #pragma unroll
-    for (int kq = 0; kq < KS; ++kq) q_frag(qa[kq], kq);
+  for (int kq = 0; kq < KS; ++kq) {
+    const bf16* p = qs + (r0 + g) * LQ + kq * 16 + 2 * t;
+    qa[kq][0] = ld32(p);
+    qa[kq][1] = ld32(p + 8 * LQ);
+    qa[kq][2] = ld32(p + 8);
+    qa[kq][3] = ld32(p + 8 * LQ + 8);
   }
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f}, acc[DT][4];
@@ -379,27 +375,13 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
-    if constexpr (kQInRegs) {
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int kq = 0; kq < KS; ++kq) {
-          const bf16* p = ks + (nt * 8 + g) * LQ + kq * 16 + 2 * t;
-          mma(s[nt], qa[kq], ld32(p), ld32(p + 8));
-        }
-    } else {
-      // the same products, each S tile summed over kq in the same order
-#pragma unroll 2
       for (int kq = 0; kq < KS; ++kq) {
-        uint32_t a[4];
-        q_frag(a, kq);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const bf16* p = ks + (nt * 8 + g) * LQ + kq * 16 + 2 * t;
-          mma(s[nt], a, ld32(p), ld32(p + 8));
-        }
+        const bf16* p = ks + (nt * 8 + g) * LQ + kq * 16 + 2 * t;
+        mma(s[nt], qa[kq], ld32(p), ld32(p + 8));
       }
-    }
 
 #pragma unroll
     for (int i = 0; i < 2; ++i) {          // rows g and g + 8
@@ -474,49 +456,90 @@ flash_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// ---- bfloat16, d 64 and 128: wgmma + TMA --------------------------------
+// ---- bfloat16, d 64, 112, 128 and 256: wgmma + TMA ----------------------
 //
 // One block per (128 query rows, b * H + h): warps 0-7 are two consumer
-// warpgroups of 64 rows each, warp 8 the producer. The producer's one
-// thread loads the block's Q once and then K and V of each 128-key tile
-// with TMA into a two-stage ring, each stage with a full barrier for K, one
-// for V and an empty barrier the two consumers arrive on once they are
-// done with it, so the next tile's loads run while this one is multiplied.
-// A consumer runs S = Q K^T as wgmma m64n128k16 with both operands in
-// shared memory, the online softmax on S in registers, and O += P V as
-// wgmma m64nDk16 with P from registers (S's accumulator layout is P's A
-// fragment, as in the mma.sync route) and V MN-major from shared memory.
+// warpgroups of 64 rows each, warp 8 the producer (warps 8-11 at d 256,
+// see below). The producer's one thread loads the block's Q once and then
+// K and V of each kv tile with TMA into a two-stage ring, each stage with
+// a full barrier for K, one for V and an empty barrier the two consumers
+// arrive on once they are done with it, so the next tile's loads run
+// while this one is multiplied. A
+// consumer runs S = Q K^T as wgmma with both operands in shared memory, the
+// online softmax on S in registers, and O += P V as wgmma with P from
+// registers (S's accumulator layout is P's A fragment, as in the mma.sync
+// route) and V MN-major from shared memory.
 //
-// The tensor maps are 4-D over (d, heads, S, B) with boxes of (64, 1, 128,
+// The tensor maps are 4-D over (d, heads, S, B) with boxes of (64, 1, rows,
 // 1) into 128-byte swizzled rows: the row stride H d (or KV d) is the
 // tensor's own, and rows past Sq or Skv are zero-filled within the batch,
 // never read from batch b + 1. The output is written from the accumulator
 // registers by each thread, rows >= Sq skipped, so no store crosses into
 // the next batch either. Blocks run longest causal row range first (grid
 // y reversed, all heads of one query tile together).
+//
+// Per head dim (Layout: kDP the width in shared memory, kBK keys a tile):
+//  - d 64 and 128: kDP = d, kBK = 128; S is m64n128k16, PV m64nDk16.
+//  - d 112 (zamba2's shared block): kDP = 128. The maps keep d = 112 as
+//    their innermost extent, so the second 64-column box brings columns
+//    64..111 and zero-fills 112..127; TMA bounds each dimension on its
+//    own, so the pad is never the next head's first columns, and counts
+//    the zero-filled bytes toward the barrier's transactions. The tiles and
+//    products are then d 128's; QK^T skips its eighth k-step (columns
+//    112..127, all zeros), PV computes 16 zero columns, which the epilogue
+//    does not store.
+//  - d 256 (gemma): kBK = 64, so Q (64 KB) and the two-stage ring of K and
+//    V tiles (4 x 32 KB) fit in 227 KB (197,696 bytes with the barriers
+//    and the alignment slack); S is m64n64k16 over 16 k-steps, PV one
+//    m64n256k16 per 16 keys into O's 128 float registers. The producer is
+//    a whole warpgroup here (warps 8-11, one thread issuing), so that
+//    setmaxnreg can move registers between warpgroups: ptxas starts every
+//    thread at 168 (65,536 / 384) and the consumers take 232 from the
+//    producer's 168 - 40 (8 x 64 = 4 x 128 more a lane). At kBK 64
+//    the block's last causal tile lies wholly past warpgroup 0's rows, so
+//    that warpgroup stops one tile early (the producer never waits for its
+//    last stage).
 namespace wg {
 
 constexpr int kBQ = 128;           // query rows per block
-constexpr int kBK = 128;           // keys per kv tile
 constexpr int kStages = 2;
 constexpr int kConsumers = 256;    // two warpgroups
-constexpr int kThreads = kConsumers + 32;
 constexpr int kChunk = 64;         // bf16 columns of one 128-byte row
 constexpr int kRowBytes = 128;
 
 template <int D>
 struct Layout {
-  static constexpr int kQBytes = kBQ * D * 2;
-  static constexpr int kKVBytes = kBK * D * 2;    // one K or V tile
+  static constexpr int kDP = (D + kChunk - 1) / kChunk * kChunk;
+  static constexpr int kBK = D > 128 ? 64 : 128;  // keys per kv tile
+  static constexpr bool kMoveRegs = D > 128;      // setmaxnreg
+  // a producer warp, or a producer warpgroup that gives up its registers
+  static constexpr int kThreads = kConsumers + (kMoveRegs ? 128 : 32);
+  static constexpr int kQBytes = kBQ * kDP * 2;
+  static constexpr int kKVBytes = kBK * kDP * 2;  // one K or V tile
   static constexpr int kBarOffset = kQBytes + 2 * kStages * kKVBytes;
   // + barriers and the slack to align the base to 1024 bytes
   static constexpr int kBytes = kBarOffset + 64 + 1024;
+  static_assert(kBytes <= 232448, "a block's shared memory");
 };
 
-template <int D>
-__device__ __forceinline__ void pv(float (&acc)[D / 2], const uint32_t (&a)[4],
-                                   uint64_t desc) {
-  if constexpr (D == 128) {
+// S (+)= Q K^T for one 16-column k-step over a tile of BK keys
+template <int BK>
+__device__ __forceinline__ void qk(float (&s)[BK / 2], uint64_t desc_q,
+                                   uint64_t desc_k, int scale_d) {
+  if constexpr (BK == 128) {
+    hopper::wgmma_ss_m64n128k16(s, desc_q, desc_k, scale_d);
+  } else {
+    hopper::wgmma_ss_m64n64k16(s, desc_q, desc_k, scale_d);
+  }
+}
+
+// O += P V for one 16-key k-step over DP columns
+template <int DP>
+__device__ __forceinline__ void pv(float (&acc)[DP / 2],
+                                   const uint32_t (&a)[4], uint64_t desc) {
+  if constexpr (DP == 256) {
+    hopper::wgmma_rs_m64n256k16(acc, a, desc, 1);
+  } else if constexpr (DP == 128) {
     hopper::wgmma_rs_m64n128k16(acc, a, desc, 1);
   } else {
     hopper::wgmma_rs_m64n64k16(acc, a, desc, 1);
@@ -524,14 +547,15 @@ __device__ __forceinline__ void pv(float (&acc)[D / 2], const uint32_t (&a)[4],
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Layout<D>::kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap v_map,
                    bf16* __restrict__ o, int n_heads, int n_kv_heads, int sq,
                    int kv_len, int causal, float scale_log2) {
   using L = Layout<D>;
-  constexpr int kChunks = D / kChunk;
+  constexpr int kDP = L::kDP, kBK = L::kBK;
+  constexpr int kChunks = kDP / kChunk;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base =
       smem_raw + ((1024 - (hopper::smem_u32(smem_raw) & 1023)) & 1023);
@@ -564,7 +588,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
   __syncthreads();
 
-  if (threadIdx.x >= kConsumers) {           // the producer warp
+  if (threadIdx.x >= kConsumers) {           // the producer
+    if constexpr (L::kMoveRegs) hopper::setmaxnreg_dec<40>();
     if (threadIdx.x == kConsumers && n_tiles > 0) {
       hopper::mbar_expect_tx(q_full, L::kQBytes);
 #pragma unroll
@@ -593,6 +618,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     }
     return;
   }
+  if constexpr (L::kMoveRegs) hopper::setmaxnreg_inc<232>();
 
   const int wgi = threadIdx.x / 128;          // consumer warpgroup
   const int tid = threadIdx.x % 128;
@@ -601,19 +627,22 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int r_min = q0 + wgi * 64;            // the warpgroup's first row
   const int row = r_min + (tid >> 5) * 16 + g;  // and rows row, row + 8
   const uint32_t q_addr = hopper::smem_u32(qs) + wgi * 64 * kRowBytes;
+  // the warpgroup's tiles: under the causal mask none past its last row
+  const int wg_hi = causal ? min(kv_hi, r_min + 64) : kv_hi;
+  const int n_mine = (wg_hi + kBK - 1) / kBK;
 
-  float acc[D / 2];                           // O, m64nD accumulator
+  float acc[kDP / 2];                         // O, m64nDP accumulator
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < kDP / 2; ++i) acc[i] = 0.0f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
 
-  if (n_tiles > 0) hopper::mbar_wait(q_full, 0);
-  for (int t = 0; t < n_tiles; ++t) {
+  if (n_mine > 0) hopper::mbar_wait(q_full, 0);
+  for (int t = 0; t < n_mine; ++t) {
     const int s = t % kStages;
     const uint32_t parity = (t / kStages) & 1;
     const int k0 = t * kBK;
 
-    // S = Q K^T (m64n128, d / 16 k-steps)
+    // S = Q K^T (m64n kBK, one k-step per 16 of the D true columns)
     float sc[kBK / 2];
     hopper::mbar_wait(k_full + s, parity);
     const uint32_t k_addr = hopper::smem_u32(ks + s * L::kKVBytes);
@@ -622,9 +651,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk / 4) * kBQ * kRowBytes + (kk % 4) * 32;
       const uint32_t koff = (kk / 4) * kBK * kRowBytes + (kk % 4) * 32;
-      hopper::wgmma_ss_m64n128k16(
-          sc, hopper::desc_sw128(q_addr + off, 16, 1024),
-          hopper::desc_sw128(k_addr + koff, 16, 1024), kk > 0);
+      qk<kBK>(sc, hopper::desc_sw128(q_addr + off, 16, 1024),
+              hopper::desc_sw128(k_addr + koff, 16, 1024), kk > 0);
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
@@ -667,7 +695,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       l[i] = l[i] * corr + rs;
       m[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < kDP / 8; ++j) {
         acc[4 * j + 2 * i] *= corr;
         acc[4 * j + 2 * i + 1] *= corr;
       }
@@ -683,14 +711,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       pa[kk][3] = pack(sc[8 * kk + 6], sc[8 * kk + 7]);
     }
 
-    // O += P V (m64nD, 8 k-steps of 16 keys; V MN-major)
+    // O += P V (m64n kDP, kBK / 16 k-steps of 16 keys; V MN-major, its
+    // 64-column chunks kBK rows apart)
     hopper::mbar_wait(v_full + s, parity);
     const uint32_t v_addr = hopper::smem_u32(vs + s * L::kKVBytes);
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
-      pv<D>(acc, pa[kk], hopper::desc_sw128(v_addr + kk * 16 * kRowBytes,
-                                            kBK * kRowBytes, 1024));
+      pv<kDP>(acc, pa[kk], hopper::desc_sw128(v_addr + kk * 16 * kRowBytes,
+                                              kBK * kRowBytes, 1024));
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
@@ -710,7 +739,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       const float den = fmaxf(li, 1e-20f);
       bf16* orow = o + ((static_cast<int64_t>(b) * sq + qr) * n_heads + h) * D;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < D / 8; ++j) {       // the D true columns
         *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * tq) =
             pack(acc[4 * j + 2 * i] / den, acc[4 * j + 2 * i + 1] / den);
       }
@@ -722,18 +751,20 @@ template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int b, int h, int kv, int sq, int skv, int kv_len,
                    int causal, cudaStream_t stream) {
+  using L = Layout<D>;
+  // innermost extent D, the true head dim: columns D..kDP-1 arrive as 0
   CUtensorMap qm, km, vm;
   cudaError_t err = hopper::map_bf16_4d(&qm, q, D, h, sq, b, kBQ);
-  if (err == cudaSuccess) err = hopper::map_bf16_4d(&km, k, D, kv, skv, b, kBK);
-  if (err == cudaSuccess) err = hopper::map_bf16_4d(&vm, v, D, kv, skv, b, kBK);
+  if (err == cudaSuccess) err = hopper::map_bf16_4d(&km, k, D, kv, skv, b, L::kBK);
+  if (err == cudaSuccess) err = hopper::map_bf16_4d(&vm, v, D, kv, skv, b, L::kBK);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(flash_wgmma_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             Layout<D>::kBytes);
+                             L::kBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(b * h, (sq + kBQ - 1) / kBQ);
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
-  flash_wgmma_kernel<D><<<grid, kThreads, Layout<D>::kBytes, stream>>>(
+  flash_wgmma_kernel<D><<<grid, L::kThreads, L::kBytes, stream>>>(
       qm, km, vm, static_cast<bf16*>(o), h, kv, sq, kv_len, causal,
       scale_log2);
   return cudaGetLastError();
@@ -785,19 +816,31 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int b,
              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kv <= 0 || h % kv) return static_cast<int>(cudaErrorInvalidValue);
-  if constexpr (std::is_same_v<T, bf16>) {     // the wgmma route, by d
-    if (d == 64) return static_cast<int>(wg::launch<64>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
-    if (d == 128) return static_cast<int>(wg::launch<128>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
-  }
-  if (b * h > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  switch (d) {
-    case 16: return static_cast<int>(launch<T, 16>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
-    case 32: return static_cast<int>(launch<T, 32>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
-    case 64: return static_cast<int>(launch<T, 64>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
-    case 112: return static_cast<int>(launch<T, 112>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
-    case 128: return static_cast<int>(launch<T, 128>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
-    case 256: return static_cast<int>(launch<T, 256>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (std::is_same_v<T, bf16>) {     // by d: wgmma, or mma.sync
+    switch (d) {
+      case 64: return static_cast<int>(wg::launch<64>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
+      case 112: return static_cast<int>(wg::launch<112>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
+      case 128: return static_cast<int>(wg::launch<128>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
+      case 256: return static_cast<int>(wg::launch<256>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
+      default: break;
+    }
+    if (b * h > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    switch (d) {
+      case 16: return static_cast<int>(launch<T, 16>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
+      case 32: return static_cast<int>(launch<T, 32>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    if (b * h > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    switch (d) {
+      case 16: return static_cast<int>(launch<T, 16>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
+      case 32: return static_cast<int>(launch<T, 32>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
+      case 64: return static_cast<int>(launch<T, 64>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
+      case 112: return static_cast<int>(launch<T, 112>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
+      case 128: return static_cast<int>(launch<T, 128>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
+      case 256: return static_cast<int>(launch<T, 256>(q, k, v, o, b, h, kv, sq, skv, kv_len, causal, s));
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
 }
 

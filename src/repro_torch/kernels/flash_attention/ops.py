@@ -18,7 +18,8 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   chunk: int = KV_CHUNK) -> torch.Tensor:
     """q [B, Sq, H, hd]; k/v [B, Skv, KV, hd], H % KV == 0 → [B, Sq, H, hd].
     ``chunk``: the KV chunk over which the plain version rounds P when q is
-    narrower than float32 (the kernel's own kv tile is 128)."""
+    narrower than float32 (the kernel's own kv tile is 128 keys, 64 at
+    head dim 256)."""
     if q.device.type == "cpu":
         return gqa_attention_ref(q, k, v, causal=causal, kv_len=kv_len,
                                  chunk=chunk)

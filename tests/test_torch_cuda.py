@@ -482,25 +482,27 @@ def _qkv(seed, shapes, dtype, device):
 
 def _check_gqa(q, k, v, causal, kv_len):
     """One launch of gqa_attention on the card, held per element against
-    attention_ref on the same values reshaped to [B H, S, d]."""
+    attention_ref on the same values reshaped to [B H, S, d]; returns the
+    kernel's output."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention.ops import gqa_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
     B, Sq, H, d = q.shape
     before, key = dict(fa.LAUNCHES), fa.launch_key(causal)
-    got = gqa_attention(q, k, v, causal=causal, kv_len=kv_len)
+    out = gqa_attention(q, k, v, causal=causal, kv_len=kv_len)
     assert fa.LAUNCHES == {**before, key: before[key] + 1}
-    assert got.dtype == q.dtype and got.shape == q.shape
+    assert out.dtype == q.dtype and out.shape == q.shape
     bh = [t.float().repeat_interleave(H // t.shape[2], dim=2).transpose(1, 2)
           .reshape(B * H, t.shape[1], d) for t in (q, k, v)]
     want = attention_ref(*bh, causal=causal, kv_len=kv_len)
     abs_attn = attention_ref(bh[0], bh[1], bh[2].abs(), causal=causal,
                              kv_len=kv_len)
-    got = got.float().transpose(1, 2).reshape(B * H, Sq, d)
+    got = out.float().transpose(1, 2).reshape(B * H, Sq, d)
     torch.cuda.synchronize()
     limit = _fa_limit(want, abs_attn, q.dtype)
     assert ((got - want).abs() <= limit).all(), (
         f"max |diff| {(got - want).abs().max().item()}")
+    return out
 
 
 @pytest.mark.cuda
@@ -549,11 +551,29 @@ def test_cuda_gqa_attention_groups(cuda_device, dtype, causal, kv_len, G, d):
     (1, 300, 300, 2, 2, 256, True, None),     # gemma
     (2, 100, 130, 4, 2, 256, False, None),
     (2, 1, 96, 2, 2, 256, False, 40),         # decode-like
+    # B 2 causal with Sq off the 128-row TMA tile: a row read or stored
+    # past Sq would land in the next batch
+    (2, 100, 100, 4, 2, 112, True, None),
+    (2, 100, 100, 4, 2, 256, True, None),
+    (2, 1, 96, 2, 2, 112, False, 40),         # decode-like
+    # kv_len inside a 64-key tile of the d 256 route, and on its boundary
+    (2, 130, 260, 2, 2, 256, True, 40),
+    (2, 200, 200, 2, 2, 256, False, 100),
+    (2, 260, 260, 2, 2, 256, False, 128),
+    (2, 260, 260, 2, 2, 256, True, 192),
+    (2, 77, 77, 8, 2, 112, True, None),       # G 4
+    (2, 77, 77, 8, 2, 112, False, 50),
+    (2, 77, 77, 8, 2, 256, True, None),
+    (2, 77, 77, 8, 2, 256, False, 50),
+    (1, 2048, 2048, 32, 32, 112, True, None),  # zamba2-7b's prefill
+    (1, 2048, 2048, 16, 16, 256, True, None),  # gemma-7b's prefill
 ])
 def test_cuda_flash_attention_wide_heads(cuda_device, dtype, B, sq, skv, H,
                                          KV, d, causal, kv_len):
-    """Head dims 112 and 256 (the mma.sync and float32 routes; the wgmma
-    route takes only 64 and 128) against attention_ref, per element."""
+    """Head dims 112 and 256 against attention_ref, per element. In
+    bfloat16 both take the wgmma route: d 112 on d 128's tiles over a
+    zero-filled pad of 16 columns (only the 112 true ones stored), d 256
+    on 64-key kv tiles; in float32 the FMA route."""
     q, k, v = _qkv(d + sq + KV, [(B, sq, H, d), (B, skv, KV, d),
                                  (B, skv, KV, d)], dtype, cuda_device)
     _check_gqa(q, k, v, causal, kv_len)
@@ -974,6 +994,52 @@ def test_cuda_lm_serving_matches_cpu(cuda_device, arch):
             assert fa.LAUNCHES == {
                 **n, "flash_attention": n["flash_attention"] + 5 * calls}
     assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,head_dim", [("gemma-7b", 256),
+                                           ("zamba2-7b", 112)])
+def test_cuda_lm_serving_wide_heads_bf16(cuda_device, arch, head_dim,
+                                         monkeypatch):
+    """The smoke variant at its published head dim, served in bfloat16 on
+    the card: every prefill's attention runs K5's bf16 wgmma route (d 256
+    on 64-key tiles, d 112 over the zero-filled pad) at the shapes the
+    model gives it, prompts off the 128-row tile, and each launch is held
+    per element to attention_ref within _fa_limit as it is served."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch.serve import Request, SlotServer, serve
+    from repro_torch.models import lm
+    from repro_torch.serve.steps import serve_config
+    from repro_torch.utils import tree_map
+    cfg = replace(smoke_variant(get_config(arch)), head_dim=head_dim)
+    assert cfg.compute_dtype == "bfloat16"
+    params = lm.init_params(torch.Generator().manual_seed(0),
+                            serve_config(cfg), "cpu")
+    shapes = []
+
+    def checked(q, k, v, *, causal=True, chunk=None):
+        shapes.append(tuple(q.shape))
+        assert q.dtype == torch.bfloat16 and q.shape[-1] == head_dim
+        return _check_gqa(q, k, v, causal, None)
+
+    monkeypatch.setattr(lm, "gqa_attention", checked)
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, cfg.vocab_size, (20 + 37 * i,),
+                             generator=gen) for i in range(5)]
+    server = SlotServer(cfg, 2, 200, device="cuda")
+    server.load(tree_map(lambda t: t.to("cuda"), params))
+    reqs = [Request(i, p, max_new=6) for i, p in enumerate(prompts)]
+    n = dict(fa.LAUNCHES)
+    serve(server, reqs)
+    calls = cfg.n_layers // (cfg.attn_every or 1)
+    assert fa.LAUNCHES == {
+        **n, "flash_attention": n["flash_attention"] + 5 * calls}
+    assert sorted({s[1] for s in shapes}) == [20, 57, 94, 131, 168]
+    for r in reqs:
+        assert len(r.generated) == 6
+        assert all(0 <= t < cfg.vocab_size for t in r.generated)
 
 
 @pytest.mark.cuda

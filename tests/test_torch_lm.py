@@ -231,19 +231,22 @@ def test_gqa_attention_groups(causal, kv_len):
     _close(got, want, 1e-5)
 
 
-def _wgmma_route_emulation(q, k, v, *, causal, kv_len=None, drop_tile=None):
+def _wgmma_route_emulation(q, k, v, *, causal, kv_len=None, drop_tile=None,
+                           bk=128):
     """float32 emulation of the order of work of the bf16 wgmma route of
     csrc/flash_attention.cu, on q [S, H, d] and k/v [Skv, H, d] (kv head
     already repeated to each query head): blocks of 128 query rows as two
-    warpgroups of 64, kv tiles of 128 keys up to the causal limit of the
-    block's last row, the mask applied only on tiles that cross the
-    diagonal or kv_len, p = 2^(s scale log2(e) - m) with m in that log2
-    domain, P rounded to bf16 before PV while l sums the unrounded p, out =
-    acc / max(l, 1e-20) rounded to bf16. ``drop_tile`` skips one kv tile."""
+    warpgroups of 64, kv tiles of ``bk`` keys (128; 64 at d 256) up to the
+    causal limit of the warpgroup's last row, the mask applied only on
+    tiles that cross the diagonal or kv_len, p = 2^(s scale log2(e) - m)
+    with m in that log2 domain, P rounded to bf16 before PV while l sums
+    the unrounded p, out = acc / max(l, 1e-20) rounded to bf16. At d 112
+    the kernel's zero-filled pad to 128 columns adds exact zeros, so the
+    true columns alone are emulated. ``drop_tile`` skips one kv tile."""
     S, H, d = q.shape
     Skv = k.shape[0]
     kv_len = Skv if kv_len is None else kv_len
-    bq = bk = 128
+    bq = 128
     neg = -1e30
     scale_log2 = torch.tensor(math.log2(math.e) / math.sqrt(d),
                               dtype=torch.float32)
@@ -260,7 +263,8 @@ def _wgmma_route_emulation(q, k, v, *, causal, kv_len=None, drop_tile=None):
             m = torch.full((H, len(rows)), neg)
             l = torch.zeros((H, len(rows)))
             acc = torch.zeros((H, len(rows), d))
-            for t, k0 in enumerate(range(0, kv_hi, bk)):
+            wg_hi = min(kv_hi, r_min + 64) if causal else kv_hi
+            for t, k0 in enumerate(range(0, wg_hi, bk)):
                 if t == drop_tile:
                     continue
                 keys = torch.arange(k0, k0 + bk)
@@ -287,14 +291,10 @@ def _wgmma_route_emulation(q, k, v, *, causal, kv_len=None, drop_tile=None):
     return out.bfloat16().float()
 
 
-@pytest.mark.parametrize("G", [1, 2])
-@pytest.mark.parametrize("causal,kv_len", [(True, None), (False, 700)])
-def test_wgmma_route_arithmetic_within_the_card_limit(G, causal, kv_len):
-    """The bf16 wgmma route's arithmetic (see the emulation) at S 1024, H 2,
-    d 128 against attention_ref on the same bf16 values, per element within
-    chip_smoke.fa_limit's 2^-8 (|o| + attention of |v|) + 1e-5; with one kv
-    tile dropped the same check fails, so the limit sees a missing tile."""
-    S, H, d = 1024, 2, 128
+def _check_wgmma_emulation(S, H, d, G, causal, kv_len, bk):
+    """The emulation against attention_ref on the same bf16 values, per
+    element within chip_smoke.fa_limit; with kv tile 1 dropped it must
+    fail by far."""
     rng = np.random.default_rng(G)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
                .bfloat16().float()
@@ -306,12 +306,34 @@ def test_wgmma_route_arithmetic_within_the_card_limit(G, causal, kv_len):
                              kv_len=kv_len)
     u = 2.0 ** -8
     limit = u * want.abs() + u * (1 + 2.0 ** -6) * abs_attn + 1e-5
-    got = _wgmma_route_emulation(q, k, v, causal=causal, kv_len=kv_len)
+    got = _wgmma_route_emulation(q, k, v, causal=causal, kv_len=kv_len, bk=bk)
     share = float(((got - want).abs() / limit).max())
     assert share <= 1.0, f"{share:.3g} of the limit"
     dropped = _wgmma_route_emulation(q, k, v, causal=causal, kv_len=kv_len,
-                                     drop_tile=1)
+                                     drop_tile=1, bk=bk)
     assert float(((dropped - want).abs() / limit).max()) > 4.0
+
+
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("causal,kv_len", [(True, None), (False, 700)])
+def test_wgmma_route_arithmetic_within_the_card_limit(G, causal, kv_len):
+    """The bf16 wgmma route's arithmetic (see the emulation) at S 1024, H 2,
+    d 128 against attention_ref on the same bf16 values, per element within
+    chip_smoke.fa_limit's 2^-8 (|o| + attention of |v|) + 1e-5; with one kv
+    tile dropped the same check fails, so the limit sees a missing tile."""
+    _check_wgmma_emulation(1024, 2, 128, G, causal, kv_len, bk=128)
+
+
+@pytest.mark.parametrize("d,bk", [(112, 128), (256, 64)])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("causal,kv_len", [(True, None), (False, 700)])
+def test_wgmma_route_arithmetic_wide_heads(d, bk, G, causal, kv_len):
+    """The same at the wide heads' routes, S 1024, H 4: d 112 on 128-key
+    tiles (the padded columns add exact zeros), d 256 on 64-key tiles,
+    where warpgroup 0 stops a tile before the block's causal limit and the
+    online softmax rescales twice as often; kv_len 700 ends inside a tile
+    of either width."""
+    _check_wgmma_emulation(1024, 4, d, G, causal, kv_len, bk=bk)
 
 
 # ---------------------------------------------------------------------------
