@@ -168,7 +168,18 @@ no ``ok`` line):
                 mamba2-780m and a zamba2-7b training layer's scan; a
                 restart from an async checkpoint on the card;
                 launch/train.py's exit codes (--smoke for internlm2 and
-                the vlm).
+                the vlm);
+ 11. mesh     — the sharding layer (``phase_mesh``, ``MESH_RUNS``):
+                ``make_host_mesh()`` = (1, 1) over cuda:0 (a one-rank
+                group over an in-process store); internlm2-1.8b and
+                mamba2-780m at full published width through
+                build_prefill_step (4 x 2048), 32 build_serve_step decode
+                steps and 3 build_train_step steps (4 and 8 x 2048), each
+                against the unsharded path in the same run: every logit,
+                cache leaf, loss, gnorm and updated param bit-identical,
+                the same K5 / K6 launches, host-clock ms and peak memory
+                of both; launch/train.py --production-mesh / --multi-pod
+                exit 2 on this one-rank job.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -179,7 +190,8 @@ the named ones of 5b-5e (``--only shard`` the shards), and prints no
 runs phases 1, 2 and 6d (with registry or adapt also named, 6d comes
 before phase 4); ``--only lm_train`` runs phases 1, 2 and 10 (first, when
 others are named too); ``--only lm`` runs phases 1, 2, 8 and 9 (before
-any other named). ``python3 chip_smoke.py --only lm --lm-depth ARCH=N``
+any other named); ``--only mesh`` runs phases 1, 2 and 11 (before any
+other named). ``python3 chip_smoke.py --only lm --lm-depth ARCH=N``
 runs phases 1, 2 and phase 8's serve of ARCH alone at N layers (of
 ``LM_ARCHS``), to measure what a depth cut of ``LM_DEPTH`` saves.
 
@@ -1805,6 +1817,248 @@ def phase_lm_train(torch, counters) -> dict:
     lm_train_restart(torch)
     lm_train_launcher(tmp / "lm_train_launcher")
     return {arch: r["launches"] for arch, r in runs.items()}
+
+
+# [mesh]: the builders on the one-rank (1, 1) host mesh at full published
+# width, against the unsharded path in the same run: (arch, serving batch,
+# training batch); prompts of MESH_PROMPT tokens, MESH_GEN decode steps,
+# MESH_TRAIN_STEPS train steps of MESH_TRAIN_SEQ tokens a row
+MESH_RUNS = (("internlm2-1.8b", 4, 4), ("mamba2-780m", 4, 8))
+MESH_PROMPT, MESH_GEN = 2048, 32
+MESH_TRAIN_STEPS, MESH_TRAIN_SEQ = 3, 2048
+
+
+def timed(torch, fn):
+    """(fn(), host-clock ms from a synchronized start to a synchronized
+    end)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def fresh_base(torch) -> float:
+    """Device bytes allocated now, after a collection, with the peak
+    counter reset: a path's peak is read net of what was alive before."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def mesh_serve(torch, arch: str, batch: int, mesh, counters) -> dict:
+    """Prefill of [batch, MESH_PROMPT] tokens and MESH_GEN decode steps
+    (fixed seeded tokens), unsharded (``lm.prefill`` / ``decode_step``)
+    and through ``build_prefill_step`` / ``build_serve_step`` on ``mesh``
+    from the same seeded bf16 weights: every logit and cache leaf must be
+    the same bits, with the same K5 / K6 launches. Each path prefills
+    twice, the first call's time reported apart (DTensor's sharding cache
+    starts cold), the second's outputs kept; its peak is net of the
+    weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import lm
+    from repro_torch.serve.steps import (build_prefill_step, build_serve_step,
+                                         grow_cache, serve_config)
+    from repro_torch.sharding import rules
+    from repro_torch.utils import tree_paths
+    cfg = get_config(arch)
+    scfg = serve_config(cfg)
+    P, n = MESH_PROMPT, MESH_GEN
+    g = torch.Generator().manual_seed(7)
+    prompt = torch.randint(0, cfg.vocab_size, (batch, P), generator=g)
+    dec = torch.randint(0, cfg.vocab_size, (n, batch, 1), generator=g)
+    prompt, dec = prompt.to("cuda"), dec.to("cuda")
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            scfg, "cuda")
+    pstep, (p_sds, t_sds), _ = build_prefill_step(
+        cfg, ShapeConfig("mesh", "prefill", P, batch), mesh)
+    dstep, (_, tok_sds, _, c_sds), _ = build_serve_step(
+        cfg, ShapeConfig("mesh", "decode", P + n, batch), mesh)
+    paths = {
+        "plain": (lambda: lm.prefill(params, prompt, scfg, max_len=P + n),
+                  lambda i, cache: lm.decode_step(
+                      params, dec[i], torch.tensor(P + i, device="cuda"),
+                      cache, scfg)),
+        "mesh": (lambda: (lambda lg, c: (lg, grow_cache(c, c_sds)))(
+                     *pstep(dp, rules.place_as(prompt, t_sds))),
+                 lambda i, cache: dstep(
+                     dp, rules.place_as(dec[i], tok_sds),
+                     torch.tensor(P + i, device="cuda"), cache))}
+    res = {}
+    for path, (prefill, decode) in paths.items():
+        if path == "mesh":
+            dp = rules.place_as(params, p_sds)
+            del params
+        base = fresh_base(torch)
+        zero(counters)
+        _, first_ms = timed(torch, prefill)
+        (logits, cache), pre_ms = timed(torch, prefill)
+        pre_cache = [rules.local(t).clone() for _, t in tree_paths(cache)]
+        outs, dec_ms = [logits], []
+        for i in range(n):
+            (lg, cache), ms = timed(torch, lambda: decode(i, cache))
+            outs.append(lg)
+            dec_ms.append(ms)
+        launches = read(counters)
+        local = [rules.local(t) for t in outs + pre_cache
+                 + [t for _, t in tree_paths(cache)]]
+        res[path] = dict(outs=local, pre_ms=pre_ms, first_ms=first_ms,
+                         dec_ms=dec_ms, launches=launches,
+                         peak=(torch.cuda.max_memory_allocated() - base)
+                         / 1e9)
+        del logits, cache, outs, pre_cache
+    a, b = res["plain"], res["mesh"]
+    bad = [i for i, (x, y) in enumerate(zip(a["outs"], b["outs"]))
+           if x.shape != y.shape or not torch.equal(x, y)]
+    if bad or len(a["outs"]) != len(b["outs"]):
+        fail(f"[mesh] {arch} serve: outputs {bad} of {len(a['outs'])} (the "
+             f"prefill logits, {n} decode logits, the cache after prefill, "
+             f"the cache after decode, leaf by leaf) differ from the "
+             f"unsharded path's")
+    if a["launches"] != b["launches"]:
+        fail(f"[mesh] {arch} serve: launches {b['launches']} on the mesh, "
+             f"{a['launches']} unsharded")
+    med = {k: sorted(v["dec_ms"])[n // 2] for k, v in res.items()}
+    print(f"[mesh] {arch} serve at full width, batch {batch}, prompt {P}, "
+          f"{n} decode steps: {len(a['outs'])} outputs bit-identical "
+          f"(logits and every cache leaf); prefill {b['pre_ms']:.1f} ms on "
+          f"the mesh vs {a['pre_ms']:.1f} unsharded (first call "
+          f"{b['first_ms']:.1f} vs {a['first_ms']:.1f}); decode step "
+          f"median {med['mesh']:.2f} ms vs {med['plain']:.2f} (min "
+          f"{min(b['dec_ms']):.2f} vs {min(a['dec_ms']):.2f}, max "
+          f"{max(b['dec_ms']):.2f} vs {max(a['dec_ms']):.2f}; host clock); "
+          f"peak {b['peak']:.2f} GB vs {a['peak']:.2f} GB allocated over "
+          f"the weights; launches of two prefills and the decode "
+          f"{ {k: v for k, v in b['launches'].items() if v} }")
+    del res, dp
+    torch.cuda.empty_cache()
+    return {"launches": b["launches"], "prefill_ms": (b["pre_ms"],
+                                                      a["pre_ms"]),
+            "decode_ms": (med["mesh"], med["plain"])}
+
+
+def mesh_train(torch, arch: str, batch: int, mesh, counters) -> dict:
+    """MESH_TRAIN_STEPS steps of ``build_train_step`` at full published
+    width, unsharded and on ``mesh`` (params and opt state placed by the
+    step's structs), each from the same seeded params on the same seeded
+    batches: loss, gnorm and every updated param must be the same bits,
+    with the same K6 launches (none of K5). The unsharded run's final
+    params stay on the card for the comparison; the mesh run's peak is
+    read net of what was alive before it."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.sharding import rules
+    from repro_torch.train.steps import build_train_step, model_of
+    from repro_torch.utils import tree_paths
+    cfg = get_config(arch)
+    shape = ShapeConfig("mesh", "train", MESH_TRAIN_SEQ, batch)
+    g = torch.Generator().manual_seed(11)
+    batches = [{k: torch.randint(0, cfg.vocab_size, (batch, MESH_TRAIN_SEQ),
+                                 generator=g).to("cuda")
+                for k in ("tokens", "labels")}
+               for _ in range(MESH_TRAIN_STEPS)]
+
+    def fresh():
+        return model_of(cfg).init_params(
+            torch.Generator(device="cuda").manual_seed(0), cfg, "cuda")
+    res, kept = {}, None
+    for path in ("plain", "mesh"):
+        base = fresh_base(torch)
+        if path == "plain":
+            step, _, opt = build_train_step(cfg, shape, device="cuda")
+            params = fresh()
+            state = opt.init(params)
+            feed = batches
+        else:
+            step, (p_sds, o_sds, b_sds), opt = build_train_step(cfg, shape,
+                                                                mesh)
+            params = rules.place_as(fresh(), p_sds)
+            state = rules.zeros(o_sds)
+            feed = [rules.place_as(b, b_sds) for b in batches]
+        zero(counters)
+        ms, metrics = [], []
+        for b in feed:
+            (params, state, m), t = timed(torch, lambda: step(params, state,
+                                                              b))
+            ms.append(t)
+            metrics.append((m["loss"], m["gnorm"]))
+        launches = read(counters)
+        res[path] = dict(ms=ms, metrics=metrics, launches=launches,
+                         peak=(torch.cuda.max_memory_allocated() - base)
+                         / 1e9)
+        del state
+        if path == "plain":
+            kept = params
+    a, b = res["plain"], res["mesh"]
+    bad = [f"step {i + 1} {k}" for i, (x, y) in enumerate(zip(a["metrics"],
+                                                             b["metrics"]))
+           for k, u, v in (("loss", x[0], y[0]), ("gnorm", x[1], y[1]))
+           if not torch.equal(u, v)]
+    bad += [p for (p, x), (_, y) in zip(tree_paths(kept),
+                                        tree_paths(params))
+            if not torch.equal(x, y.to_local())]
+    if bad:
+        fail(f"[mesh] {arch} train: {bad[:8]} ({len(bad)}) differ from the "
+             f"unsharded path's")
+    if a["launches"] != b["launches"]:
+        fail(f"[mesh] {arch} train: launches {b['launches']} on the mesh, "
+             f"{a['launches']} unsharded")
+    n_leaves = len(list(tree_paths(kept)))
+    print(f"[mesh] {arch} train at full width, batch {batch} x "
+          f"{MESH_TRAIN_SEQ}, {MESH_TRAIN_STEPS} steps: loss "
+          f"{[float(x) for x, _ in b['metrics']]}, gnorm "
+          f"{[float(y) for _, y in b['metrics']]} and all {n_leaves} param "
+          f"leaves bit-identical to the unsharded run; step ms on the mesh "
+          f"{[round(t, 1) for t in b['ms']]} vs "
+          f"{[round(t, 1) for t in a['ms']]} (host clock; step 1 with "
+          f"DTensor's sharding cache cold); peak {b['peak']:.2f} GB vs "
+          f"{a['peak']:.2f} GB allocated over what was alive before (the "
+          f"unsharded run's final params, kept for the comparison); "
+          f"launches { {k: v for k, v in b['launches'].items() if v} }")
+    del res, kept, params
+    torch.cuda.empty_cache()
+    return {"launches": b["launches"], "step_ms": (b["ms"], a["ms"])}
+
+
+def phase_mesh(torch, counters) -> dict:
+    """[mesh]: ``make_host_mesh()`` on this one-card job ((1, 1) over
+    cuda:0, a one-rank group over an in-process store), the serving and
+    training builders of ``MESH_RUNS`` at full published width on it,
+    bit-identical to the unsharded path in the same run (at one rank
+    every placement replicates, so the same kernels see the same
+    tensors), with their host-clock times and peaks beside the unsharded
+    path's; then launch/train.py's production meshes on this job (exit 2,
+    naming the ranks they need). Returns the mesh runs' launches by
+    arch."""
+    import io
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(device="cuda")
+    if tuple(mesh.shape) != (1, 1) or mesh.device_type != "cuda":
+        fail(f"[mesh] make_host_mesh() on one card gave {mesh}")
+    print(f"[mesh] {mesh} on {torch.cuda.get_device_name(0)}, "
+          f"nvidia-smi {nvidia_smi()}; torch {torch.__version__}")
+    out = {}
+    for arch, serve_b, train_b in MESH_RUNS:
+        t0 = time.perf_counter()
+        s = mesh_serve(torch, arch, serve_b, mesh, counters)
+        t = mesh_train(torch, arch, train_b, mesh, counters)
+        out[arch] = {k: s["launches"][k] + t["launches"][k]
+                     for k in s["launches"]}
+        print(f"[mesh] {arch} {time.perf_counter() - t0:.1f} s")
+    for flag, need in (("--production-mesh", 256), ("--multi-pod", 512)):
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = launcher.main([flag, "--ckpt-dir",
+                                str(ROOT / "build" / "chip_smoke" / "mesh")])
+        if rc != 2 or f"needs {need} ranks" not in err.getvalue():
+            fail(f"launch/train.py {flag}: exit {rc}, {err.getvalue()!r}")
+        print(f"[mesh] launch/train.py {flag}: exit 2, "
+              f"{err.getvalue().strip()}")
+    return out
 
 
 class Prerecorded:
@@ -3738,9 +3992,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--only"]:
         ONLY = set(sys.argv[2].split(","))
         if not ONLY <= {"registry", "adapt", "shard", "files", "lm_train",
-                        "lm"}:
-            fail(f"--only takes registry, adapt, shard, files, lm_train "
-                 f"and/or lm, got {sys.argv[2]}")
+                        "lm", "mesh"}:
+            fail(f"--only takes registry, adapt, shard, files, lm_train, "
+                 f"lm and/or mesh, got {sys.argv[2]}")
     lm_one = None
     if sys.argv[1:5:2] == ["--only", "--lm-depth"]:
         lm_one, _, depth = sys.argv[4].partition("=")
@@ -3803,6 +4057,15 @@ def main() -> int:
         print(f"[done] --only lm --lm-depth {sys.argv[4]} in "
               f"{time.perf_counter() - t_all:.1f} s (no ok line)")
         return 0
+    if "mesh" in ONLY:
+        t0 = time.perf_counter()
+        phase_mesh(torch, all_counters)
+        print(f"[mesh] phase {time.perf_counter() - t0:.1f} s")
+        ONLY.discard("mesh")
+        if not ONLY:
+            print(f"[done] --only mesh in {time.perf_counter() - t_all:.1f} "
+                  f"s (no ok line)")
+            return 0
     if "lm" in ONLY:
         phase_lm_all(torch, all_counters)
         ONLY.discard("lm")
@@ -4001,6 +4264,12 @@ def main() -> int:
     lm_train = phase_lm_train(torch, counters)
     print(f"[lm train] phase {time.perf_counter() - t0:.1f} s")
 
+    # 11. the sharding layer's builders on the (1, 1) host mesh at full
+    # width, bit-identical to the unsharded path
+    t0 = time.perf_counter()
+    mesh_runs = phase_mesh(torch, counters)
+    print(f"[mesh] phase {time.perf_counter() - t0:.1f} s")
+
     names = {"fold": ("stream_fold", "src/repro/kernels/stream_fold/"
                                      "stream_fold.py:81"),
              "fold_mac": ("stream_fold_mac", "src/repro/kernels/stream_fold/"
@@ -4034,7 +4303,8 @@ def main() -> int:
     # or at the seamless encoder's (d 64, its decoder cross alike)
     causal_row = {112: "_d112", 256: "_d256"}
     noncausal_row = {128: "_vlm_cross", 64: "_encoder"}
-    fa_launches = {"": sum(n["flash_attention"] for n in lm_train.values()),
+    fa_launches = {"": sum(n["flash_attention"] for n in lm_train.values())
+                   + sum(n["flash_attention"] for n in mesh_runs.values()),
                    "_d112": 0, "_d256": 0, "_vlm_cross": 0, "_encoder": 0}
     for arch, run in lm_runs.items():
         hd, n = run["head_dim"], run["launches"]
@@ -4050,7 +4320,7 @@ def main() -> int:
     lm_kernels += [
         (ssd_rows["bfloat16"], "ssd", "ssd.cu", "ssd/ssd.py:85",
          lm_runs["mamba2-780m"]["launches"]["ssd"]
-         + lm_train["mamba2-780m"]["ssd"]),
+         + lm_train["mamba2-780m"]["ssd"] + mesh_runs["mamba2-780m"]["ssd"]),
         (ssd_rows["bfloat16_zamba2"], "ssd_zamba2", "ssd.cu", "ssd/ssd.py:85",
          lm_runs["zamba2-7b"]["launches"]["ssd"]
          + lm_train["zamba2-7b"]["ssd"])]

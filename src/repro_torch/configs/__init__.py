@@ -3,8 +3,7 @@
 Arch ids use the reference's dashes; module files use underscores. The
 port serves every family of the reference's registry: ``dense``, ``ssm``,
 ``moe``, ``hybrid`` and ``vlm`` through ``models/lm.py``, the enc-dec
-``audio`` family through ``models/encdec.py``; it trains ``dense`` and
-``ssm``.
+``audio`` family through ``models/encdec.py``, and trains them all.
 """
 from __future__ import annotations
 

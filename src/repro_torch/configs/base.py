@@ -9,11 +9,12 @@ carried across from it, depend on it. ``tp_multiple=1`` (smoke configs)
 keeps physical == logical. ``remat`` is read by the training path
 (``models/lm._maybe_remat``).
 
-The reference's sharding knobs (``weight_sharding``, ``zero1``) and
-``moe_impl`` are left out: nothing the port runs reads them (the
-reference's own ``moe_apply`` never reads ``moe_impl``). They come back
-with the slices that do. ``capacity_factor`` is read by ``nn/moe.capacity``
-and ``serve/steps.serve_config``.
+The sharding knobs ``weight_sharding`` and ``zero1`` (and
+``effective_weight_sharding()``, ``param_count_est()`` behind them) are
+read by ``sharding/rules.py``, with the reference's values. ``moe_impl``
+is left out: the reference's own ``moe_apply`` never reads it.
+``capacity_factor`` is read by ``nn/moe.capacity`` and
+``serve/steps.serve_config``.
 """
 from __future__ import annotations
 
@@ -65,6 +66,8 @@ class LMConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     remat: str = "full"            # full | dots | none
+    weight_sharding: str = "auto"  # auto | 2d | tp
+    zero1: bool = True
     attn_chunk: int = 1024         # online-softmax KV chunk
 
     # ---------------- derived physical shapes ----------------
@@ -103,6 +106,40 @@ class LMConfig:
     @property
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
+
+    def effective_weight_sharding(self) -> str:
+        if self.weight_sharding != "auto":
+            return self.weight_sharding
+        return "2d" if self.param_count_est() > 8e9 else "tp"
+
+    def param_count_est(self) -> float:
+        """Rough parameter count (for the sharding mode)."""
+        D, F, L, V = self.d_model, self.d_ff, self.n_layers, self.vocab_size
+        if self.family == "ssm":
+            di, nh = self.ssm_inner, self.ssm_nheads
+            gN = self.ssm_groups * self.ssm_state
+            per = (D * (2 * di + 2 * gN + nh) + di * D
+                   + self.ssm_conv * (di + 2 * gN))
+            return L * per + 2 * V * D
+        attn = D * (self.n_heads + 2 * self.n_kv_heads) * self.head_dim \
+            + self.n_heads * self.head_dim * D
+        if self.n_experts:
+            ffn = self.n_experts * 3 * D * F + D * self.n_experts
+        else:
+            ffn = 3 * D * F
+        per = attn + ffn + 2 * D
+        if self.family == "hybrid":
+            di, nh = self.ssm_inner, self.ssm_nheads
+            gN = self.ssm_groups * self.ssm_state
+            ssm_per = D * (2 * di + 2 * gN + nh) + di * D
+            n_attn = self.n_layers // max(self.attn_every, 1)
+            return (self.n_layers - n_attn) * ssm_per + n_attn * per + 2 * V * D
+        total = L * per + 2 * V * D
+        if self.is_encdec:
+            total += self.encoder_layers * per
+        if self.cross_every:
+            total += (L // self.cross_every) * attn
+        return total
 
 
 @dataclass(frozen=True)
@@ -145,6 +182,6 @@ def smoke_variant(cfg: LMConfig) -> LMConfig:
         top_k=min(cfg.top_k, 2) if cfg.n_experts else 0,
         ssm_state=16 if cfg.ssm_state else 0,
         ssm_head_dim=16 if cfg.ssm_state else 64,
-        remat="none", attn_chunk=64,
+        remat="none", zero1=False, weight_sharding="tp", attn_chunk=64,
     )
     return replace(cfg, **kw)

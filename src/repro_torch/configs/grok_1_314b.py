@@ -1,8 +1,9 @@
 """grok-1-314b — 8 experts top-2 MoE [hf:xai-org/grok-1].
 
-The reference shards it 2D (``weight_sharding="2d"``: 314B parameters do
-not fit one device); the port has no sharding knob yet and serves it on
-one card at a cut depth.
+8 experts < 16-way model axis: tensor parallel *inside* experts (d_ff
+32768 shards 16 ways); weights 2D-sharded (model x data, FSDP-style):
+314B parameters cannot replicate across the data axis. One card serves it
+at a cut depth.
 """
 from repro_torch.configs.base import LMConfig
 
@@ -19,4 +20,5 @@ CONFIG = LMConfig(
     n_experts=8,
     top_k=2,
     capacity_factor=1.25,
+    weight_sharding="2d",
 )

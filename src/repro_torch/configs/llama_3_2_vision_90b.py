@@ -5,9 +5,8 @@
 vision front end is a stub: the model consumes precomputed patch
 embeddings [B, 1601, 1280] (ViT-H grid + CLS), which the cross-attention
 K/V projections read directly. kv=8 replicates to 16 for the model axis.
-The reference shards it 2D (``weight_sharding="2d"``: 88.8 G parameters
-are 177.6 GB in bf16); the port has no sharding knob yet and serves it on
-one card at a cut depth.
+Weights 2D-sharded (``weight_sharding="2d"``: 88.8 G parameters are
+177.6 GB in bf16); one card serves it at a cut depth.
 """
 from repro_torch.configs.base import LMConfig
 
@@ -26,4 +25,5 @@ CONFIG = LMConfig(
     cross_every=5,
     n_image_tokens=1601,
     vision_dim=1280,
+    weight_sharding="2d",
 )

@@ -38,7 +38,12 @@ def gqa_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        ) -> torch.Tensor:
     """q [B, Sq, H, d], k/v [B, Skv, KV, d] (H % KV == 0) on CUDA →
     o [B, Sq, H, d] of q's type, in one launch."""
+    from torch.distributed.tensor import DTensor
     for name, t in (("q", q), ("k", k), ("v", v)):
+        if isinstance(t, DTensor):
+            raise TypeError(f"{name} is a DTensor; the kernel reads local "
+                            f"tensors only (ops.gqa_attention runs it on "
+                            f"each shard)")
         if t.device.type != "cuda":
             raise ValueError(f"{name} is on {t.device}; the kernel needs CUDA "
                              f"tensors")

@@ -39,8 +39,12 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """x [b,s,h,p] float32/bfloat16, dt [b,s,h] and A [h] float32, B/C
     [b,s,g,n] of x's type, on CUDA → (y [b,s,h,p] of x's type, state
     [b,h,p,n] float32), in three launches counted as one call."""
+    from torch.distributed.tensor import DTensor
     args = {"x": x, "dt": dt, "A": A, "B": B, "C": C}
     for name, t in args.items():
+        if isinstance(t, DTensor):
+            raise TypeError(f"{name} is a DTensor; the kernel reads local "
+                            f"tensors only (ops.ssd runs it on each shard)")
         if t.device != x.device or t.device.type != "cuda":
             raise ValueError(f"{name} is on {t.device}; the kernel needs every "
                              f"input on one CUDA device")

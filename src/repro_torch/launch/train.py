@@ -9,15 +9,19 @@ PyTorch).
 ``--seq`` shape, so the whole loop (data → step → checkpoint → restart)
 runs end to end; a rerun with the same ``--ckpt-dir`` resumes from its
 newest checkpoint (by default the run's last step is one). Without
-``--smoke`` the shape is ``--shape`` from ``SHAPES``. Every family of
-``configs.ARCHS`` trains on one device (grok-1-314b and
-llama-3.2-vision-90b only on their smoke variants: at full width their
-state needs several cards). The vlm's batch carries image embeddings
-[B, n_image_tokens, vision_dim] and the enc-dec's frame embeddings [B,
-seq, d_model], the stub front ends' output: drawn once, each from its
-own fixed seed (0 and 1) in the compute dtype, and the same every step,
-as the reference's. An unknown arch, ``--production-mesh`` and
-``--multi-pod`` (sharding) print ``error: ...`` and exit 2.
+``--smoke`` the shape is ``--shape`` from ``SHAPES``. The vlm's batch
+carries image embeddings [B, n_image_tokens, vision_dim] and the
+enc-dec's frame embeddings [B, seq, d_model], the stub front ends'
+output: drawn once, each from its own fixed seed (0 and 1) in the compute
+dtype, and the same every step, as the reference's.
+
+The loop runs on a mesh (``launch/mesh.py``), as the reference's does:
+``make_host_mesh()`` over the job's ranks by default (one rank: ``(1,
+1)``), the 16 × 16 production mesh with ``--production-mesh`` and 2 × 16
+× 16 with ``--multi-pod``. A job of another size than those need, and an
+unknown arch, print ``error: ...`` and exit 2. A job of several ranks is
+started by ``torchrun``; every family trains on a mesh (grok-1-314b and
+llama-3.2-vision-90b at full width only across many cards).
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import torch
 from repro_torch.configs import get_config, smoke_variant
 from repro_torch.configs.base import SHAPES, LMConfig, ShapeConfig
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.train.loop import LoopConfig, run
 from repro_torch.train.steps import check_trainable, make_batch_specs
 
@@ -70,15 +75,15 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--multi-pod", action="store_true")
     args = ap.parse_args(argv)
 
-    if args.production_mesh or args.multi_pod:
-        print("error: --production-mesh and --multi-pod need the sharded "
-              "step builders, which are not ported yet (ROADMAP.md, queue "
-              "1 item 2a); the port trains on one device", file=sys.stderr)
-        return 2
     try:
         cfg = get_config(args.arch)
         check_trainable(cfg)
-    except (NotImplementedError, KeyError) as e:
+        if args.production_mesh or args.multi_pod:
+            mesh = make_production_mesh(multi_pod=args.multi_pod,
+                                        device=args.device)
+        else:
+            mesh = make_host_mesh(device=args.device)
+    except (NotImplementedError, KeyError, ValueError) as e:
         print(f"error: {e.args[0]}", file=sys.stderr)
         return 2
     if args.smoke:
@@ -90,8 +95,10 @@ def main(argv: list[str] | None = None) -> int:
     loop = LoopConfig(total_steps=args.steps, lr=args.lr,
                       ckpt_dir=args.ckpt_dir,
                       ckpt_every=args.ckpt_every or min(50, args.steps))
-    res = run(cfg, shape, loop, device=args.device,
+    res = run(cfg, shape, loop, mesh, device=args.device,
               extra_batch_fn=extra_batch(cfg, shape, args.device))
+    if mesh.get_rank() != 0:
+        return 0
     if not res.losses:
         print(f"[train] nothing to do: restored at step {res.final_step} of "
               f"{args.steps}")

@@ -42,6 +42,7 @@ from repro_torch.models.lm import (_dense_block_init, _layer, _layers,
                                    cross_attn_prefill, self_attn_prefill,
                                    tree_like)
 from repro_torch.nn import layers as L
+from repro_torch.sharding.rules import shard_batch
 
 Params = dict
 
@@ -97,10 +98,11 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, enc_len: int,
                dtype=None, device: str | torch.device | None = None) -> dict:
     """``{"self": {"k", "v"} [n_layers, B, max_len, KV, hd], "cross":
     {"k", "v"} [n_layers, B, enc_len, KV, hd]}``; batch is axis 1 of every
-    leaf."""
+    leaf. ``device="meta"`` gives shapes and dtypes only."""
     check_encdec(cfg)
     dtype = dtype or L.cdt(cfg)
-    dev = resolve_device(device)
+    dev = (torch.device("meta") if str(device) == "meta"
+           else resolve_device(device))
     lead = (cfg.n_layers,)
     return {"self": attn_cache(cfg, lead, batch, max_len, dtype, dev),
             "cross": attn_cache(cfg, lead, batch, enc_len, dtype, dev)}
@@ -115,29 +117,34 @@ def encode(params: Params, frames: torch.Tensor, cfg: LMConfig
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
     for i in range(cfg.encoder_layers):
         bp = _layer(params["enc_blocks"], i)
+        h = shard_batch(h)
         h = h + self_attn_prefill(bp["attn"], L.rmsnorm(h, bp["ln1"],
                                                         cfg.norm_eps),
                                   cfg, positions, causal=False)[0]
-        h = h + L.mlp_apply(bp["mlp"], L.rmsnorm(h, bp["ln2"], cfg.norm_eps),
-                            cfg)
+        h = shard_batch(h + L.mlp_apply(
+            bp["mlp"], L.rmsnorm(h, bp["ln2"], cfg.norm_eps), cfg))
     return L.rmsnorm(h, params["enc_norm"], cfg.norm_eps)
 
 
 def prefill(params: Params, frames: torch.Tensor, tokens: torch.Tensor,
-            cfg: LMConfig, max_len: int | None = None
-            ) -> tuple[torch.Tensor, dict]:
+            cfg: LMConfig, max_len: int | None = None,
+            cache: dict | None = None) -> tuple[torch.Tensor, dict]:
     """Encode ``frames``, then run the decoder over the prompt ``tokens``
     [B, S]: (last logits [B, Vp], cache with S self entries of
-    ``max_len`` positions and the encoder length of cross entries)."""
+    ``max_len`` positions and the encoder length of cross entries).
+    ``cache``: the zero cache to fill, as in ``lm.prefill``."""
     memory = encode(params, frames, cfg)
     B, S = tokens.shape
     max_len = max_len or S
     h = L.embed_apply(params["embed"], tokens, cfg)
-    cache = init_cache(cfg, B, max_len, memory.shape[1], device=tokens.device)
+    if cache is None:
+        cache = init_cache(cfg, B, max_len, memory.shape[1],
+                           device=tokens.device)
     sc, xc = cache["self"], cache["cross"]
     positions = torch.arange(S, device=tokens.device)[None, :]
     for i in range(cfg.n_layers):
         bp = _layer(params["dec_blocks"], i)
+        h = shard_batch(h)
         a, k, v = self_attn_prefill(bp["attn"], L.rmsnorm(h, bp["ln1"],
                                                           cfg.norm_eps),
                                     cfg, positions)
@@ -150,8 +157,8 @@ def prefill(params: Params, frames: torch.Tensor, tokens: torch.Tensor,
         h = h + a
         xc["k"][i] = k
         xc["v"][i] = v
-        h = h + L.mlp_apply(bp["mlp"], L.rmsnorm(h, bp["ln2"], cfg.norm_eps),
-                            cfg)
+        h = shard_batch(h + L.mlp_apply(
+            bp["mlp"], L.rmsnorm(h, bp["ln2"], cfg.norm_eps), cfg))
     h = L.rmsnorm(h[:, -1:, :], params["final_norm"], cfg.norm_eps)
     return L.unembed_apply(params["embed"], h, cfg)[:, 0], cache
 
@@ -212,8 +219,8 @@ def encode_trainable(params: Params, frames: torch.Tensor, cfg: LMConfig
     check_encdec(cfg)
     h = frames.to(L.cdt(cfg))
     positions = torch.arange(h.shape[1], device=h.device)[None, :]
-    body = _maybe_remat(lambda h, bp: _enc_block_fwd(h, bp, cfg, positions),
-                        cfg)
+    body = _maybe_remat(lambda h, bp: shard_batch(_enc_block_fwd(
+        shard_batch(h), bp, cfg, positions)), cfg)
     for bp in _layers(params["enc_blocks"], cfg.encoder_layers):
         h = body(h, bp)
     return L.rmsnorm(h, params["enc_norm"], cfg.norm_eps)
@@ -226,8 +233,8 @@ def _decoder(params: Params, frames: torch.Tensor, tokens: torch.Tensor,
     memory = encode_trainable(params, frames, cfg)
     h = L.embed_apply(params["embed"], tokens, cfg)
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-    body = _maybe_remat(lambda h, bp, memory: _dec_block_fwd(
-        h, bp, memory, cfg, positions), cfg)
+    body = _maybe_remat(lambda h, bp, memory: shard_batch(_dec_block_fwd(
+        shard_batch(h), bp, memory, cfg, positions)), cfg)
     for bp in _layers(params["dec_blocks"], cfg.n_layers):
         h = body(h, bp, memory)
     return L.rmsnorm(h, params["final_norm"], cfg.norm_eps)

@@ -63,6 +63,7 @@ from repro_torch.kernels.flash_attention.ops import gqa_attention
 from repro_torch.nn import layers as L
 from repro_torch.nn import moe as moe_mod
 from repro_torch.nn import ssm as ssm_mod
+from repro_torch.sharding.rules import replicated_like, shard_batch
 from repro_torch.utils import tree_map
 
 Params = dict
@@ -229,10 +230,12 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
     ``{"ssm": {...} [n_groups, k, B, ...], "attn": {"k", "v"} [n_groups,
     B, max_len, KV, hd]}``; vlm: ``{"self": {"k", "v"} [n_groups, k - 1,
     B, max_len, KV, hd], "cross": {"k", "v"} [n_groups, B,
-    n_image_tokens, KV, hd]}``."""
+    n_image_tokens, KV, hd]}``. ``device="meta"`` gives shapes and dtypes
+    only."""
     check_servable(cfg)
-    return _cache(cfg, batch, max_len, dtype or L.cdt(cfg),
-                  resolve_device(device))
+    dev = (torch.device("meta") if str(device) == "meta"
+           else resolve_device(device))
+    return _cache(cfg, batch, max_len, dtype or L.cdt(cfg), dev)
 
 
 def cache_batch_axes(cfg: LMConfig) -> dict:
@@ -313,7 +316,8 @@ def _dense_block_fwd(h: torch.Tensor, bp: Params, cfg: LMConfig,
         y, aux = moe_mod.moe_apply(bp["moe"], x, cfg)
         return h + y, aux["lb_loss"]
     y = L.mlp_apply(bp["mlp"], x, cfg)
-    return h + y, torch.zeros((), dtype=torch.float32, device=h.device)
+    return h + y, replicated_like(torch.zeros((), dtype=torch.float32,
+                                              device=h.device), h)
 
 
 def _ssm_block_fwd(h: torch.Tensor, bp: Params, cfg: LMConfig
@@ -342,11 +346,12 @@ def backbone(params: Params, h: torch.Tensor, cfg: LMConfig,
     in the reference, a hybrid's shared block adds none). The vlm needs
     ``img_embed`` [B, n_image_tokens, vision_dim]."""
     check_servable(cfg)
-    lb = torch.zeros((), dtype=torch.float32, device=h.device)
+    lb = replicated_like(torch.zeros((), dtype=torch.float32, device=h.device),
+                         h)
     if cfg.family in ("dense", "moe"):
         def body(h, lb, bp):
-            h, lb_i = _dense_block_fwd(h, bp, cfg, positions)
-            return h, lb + lb_i
+            h, lb_i = _dense_block_fwd(shard_batch(h), bp, cfg, positions)
+            return shard_batch(h), lb + lb_i
         body = _maybe_remat(body, cfg)
         for bp in _layers(params["blocks"], cfg.n_layers):
             h, lb = body(h, lb, bp)
@@ -355,9 +360,10 @@ def backbone(params: Params, h: torch.Tensor, cfg: LMConfig,
         n_groups, k_blocks = _groups(cfg)
 
         def group(h, gp, shared):
+            h = shard_batch(h)
             for bp in _layers(gp, k_blocks):
-                h = _ssm_block_fwd(h, bp, cfg)
-            return _dense_block_fwd(h, shared, cfg, positions)[0]
+                h = shard_batch(_ssm_block_fwd(h, bp, cfg))
+            return shard_batch(_dense_block_fwd(h, shared, cfg, positions)[0])
         group = _maybe_remat(group, cfg)
         for gp in _layers(params["blocks"], n_groups):
             h = group(h, gp, params["shared"])
@@ -368,15 +374,17 @@ def backbone(params: Params, h: torch.Tensor, cfg: LMConfig,
         n_groups, k_blocks = _groups(cfg)
 
         def group(h, gp, xp, memory):
+            h = shard_batch(h)
             for bp in _layers(gp, k_blocks):
-                h = _dense_block_fwd(h, bp, cfg, positions)[0]
-            return _cross_block_fwd(h, xp, memory, cfg)
+                h = shard_batch(_dense_block_fwd(h, bp, cfg, positions)[0])
+            return shard_batch(_cross_block_fwd(h, xp, memory, cfg))
         group = _maybe_remat(group, cfg)
         for gp, xp in zip(_layers(params["blocks"], n_groups),
                           _layers(params["cross_blocks"], n_groups)):
             h = group(h, gp, xp, img_embed)
         return h, lb
-    body = _maybe_remat(partial(_ssm_block_fwd, cfg=cfg), cfg)
+    body = _maybe_remat(lambda h, bp: shard_batch(_ssm_block_fwd(
+        shard_batch(h), bp, cfg)), cfg)
     for bp in _layers(params["blocks"], cfg.n_layers):
         h = body(h, bp)
     return h, lb
@@ -457,12 +465,14 @@ def decode_step(params: Params, token: torch.Tensor, pos: torch.Tensor,
     blocks = params["blocks"]
     if cfg.family in ("dense", "moe"):
         for i in range(cfg.n_layers):
-            h = _attn_block_decode(_layer(blocks, i), h, cache["k"][i],
-                                   cache["v"][i], pos, cfg)
+            h = shard_batch(_attn_block_decode(_layer(blocks, i),
+                                               shard_batch(h), cache["k"][i],
+                                               cache["v"][i], pos, cfg))
     elif cfg.family == "ssm":
         for i in range(cfg.n_layers):
-            h = _ssm_block_decode(_layer(blocks, i), h,
-                                  {k: v[i] for k, v in cache.items()}, cfg)
+            h = shard_batch(_ssm_block_decode(
+                _layer(blocks, i), shard_batch(h),
+                {k: v[i] for k, v in cache.items()}, cfg))
     elif cfg.family == "hybrid":
         n_groups, k_blocks = _groups(cfg)
         for g in range(n_groups):
@@ -520,6 +530,9 @@ def _attn_block_prefill(bp: Params, h: torch.Tensor, cfg: LMConfig,
                                                       cfg.norm_eps),
                                 cfg, positions)
     h = h + a
+    # pin the cache rows to their layout ([B@batch, S, KV@model, hd])
+    k = shard_batch(k, None, "model", None)
+    v = shard_batch(v, None, "model", None)
     return h + _ffn(bp, L.rmsnorm(h, bp["ln2"], cfg.norm_eps), cfg), k, v
 
 
@@ -549,10 +562,13 @@ def _ssm_block_prefill(bp: Params, h: torch.Tensor, c: dict, cfg: LMConfig
 
 def prefill(params: Params, tokens: torch.Tensor, cfg: LMConfig,
             img_embed: torch.Tensor | None = None,
-            max_len: int | None = None) -> tuple[torch.Tensor, dict]:
+            max_len: int | None = None, cache: dict | None = None
+            ) -> tuple[torch.Tensor, dict]:
     """tokens [B, S] → (last logits [B, Vp], cache with S entries of
     ``max_len`` positions). vlm needs ``img_embed`` [B, n_image_tokens,
-    vision_dim], whose k and v fill the cross cache."""
+    vision_dim], whose k and v fill the cross cache. ``cache``: the zero
+    cache to fill (``serve/steps.build_prefill_step`` passes one placed
+    on its mesh); by default a new one on the tokens' device."""
     check_servable(cfg)
     if cfg.family == "vlm" and img_embed is None:
         raise ValueError(f"{cfg.name}: vlm prefill needs img_embed")
@@ -560,18 +576,21 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: LMConfig,
     max_len = max_len or S
     h = L.embed_apply(params["embed"], tokens, cfg)
     blocks = params["blocks"]
-    cache = init_cache(cfg, B, max_len, device=tokens.device)
+    if cache is None:
+        cache = init_cache(cfg, B, max_len, device=tokens.device)
     positions = torch.arange(S, device=tokens.device)[None, :]
     if cfg.family in ("dense", "moe"):
         for i in range(cfg.n_layers):
-            h, k, v = _attn_block_prefill(_layer(blocks, i), h, cfg,
-                                          positions)
+            h, k, v = _attn_block_prefill(_layer(blocks, i), shard_batch(h),
+                                          cfg, positions)
+            h = shard_batch(h)
             cache["k"][i, :, :S] = k
             cache["v"][i, :, :S] = v
     elif cfg.family == "ssm":
         for i in range(cfg.n_layers):
-            h = _ssm_block_prefill(_layer(blocks, i), h,
-                                   {k: v[i] for k, v in cache.items()}, cfg)
+            h = shard_batch(_ssm_block_prefill(
+                _layer(blocks, i), shard_batch(h),
+                {k: v[i] for k, v in cache.items()}, cfg))
     elif cfg.family == "hybrid":
         n_groups, k_blocks = _groups(cfg)
         for g in range(n_groups):

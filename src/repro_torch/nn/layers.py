@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.sharding.rules import replicated_like
 
 Params = dict
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -90,8 +91,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     hd = x.shape[-1]
     freqs = rope_freqs(hd, theta, x.device)                  # [hd/2]
     ang = positions[..., None].float() * freqs               # [..., S, hd/2]
-    cos = torch.cos(ang)[..., None, :]                       # [..., S, 1, hd/2]
-    sin = torch.sin(ang)[..., None, :]
+    cos = replicated_like(torch.cos(ang)[..., None, :], x)   # [..., S, 1, hd/2]
+    sin = replicated_like(torch.sin(ang)[..., None, :], x)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -173,8 +174,12 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``kv_len``: number of valid kv positions (masks the cache tail), an
     int or per-row ``[B]``. Returns [B, Sq, H, hd]; statistics in float32.
     Scores take float32 products of the inputs; P is rounded to q's type
-    before PV, as the reference's (flash/MXU practice).
+    before PV, as the reference's (flash/MXU practice). On DTensors (a
+    sharded step) it runs on each rank's shards (:func:`_attention_shards`).
     """
+    if hasattr(q, "placements"):
+        return _attention_shards(q, k, v, causal=causal, chunk=chunk,
+                                 q_offset=q_offset, kv_len=kv_len)
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -225,6 +230,48 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-20)
     return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def _attention_shards(q, k, v, **kw) -> torch.Tensor:
+    """:func:`attention_core` on DTensors, through ``local_map``: each
+    rank attends its batch rows and heads (both independent), the batch
+    over the batch axes and the heads over "model" (q's and k/v's alike, so
+    a query head's kv head stays on its rank), as K5 runs
+    (``kernels/flash_attention/ops``); torch 2.11's DTensor cannot
+    propagate the einsums' flattening of sharded heads. ``q_offset`` and
+    ``kv_len`` must be the same for every row (ints or 0-dim plain
+    tensors)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding.rules import head_placements
+    for name in ("q_offset", "kv_len"):
+        t = kw[name]
+        if isinstance(t, torch.Tensor) and (t.dim() or
+                                            hasattr(t, "placements")):
+            raise NotImplementedError(
+                f"attention_core on a mesh takes a {name} shared by every "
+                f"row (an int or a 0-dim plain tensor)")
+    pq, pkv = head_placements(q, k)
+    return local_map(lambda *t: attention_core(
+        *(_ContiguousGrad.apply(x) for x in t), **kw),
+        out_placements=list(pq), in_placements=(pq, pkv, pkv),
+        device_mesh=q.device_mesh, redistribute_inputs=True)(q, k, v)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous: a per-shard
+    function's input gradients leave ``local_map`` as they are, and
+    DTensor's backward of a view over sharded dims (the projections'
+    reshapes) views the local shard, which the einsums' backward leaves
+    strided."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
 
 
 def attn_out(p: Params, o: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
@@ -346,7 +393,47 @@ def embed_init(gen, cfg: LMConfig) -> Params:
 
 def embed_apply(p: Params, tokens: torch.Tensor, cfg: LMConfig
                 ) -> torch.Tensor:
-    return p["embedding"][tokens.long()].to(cdt(cfg))
+    """The rows of ``tokens``, by ``F.embedding``; a table sharded over
+    "model" on a mesh of several model ranks looks up on each rank's rows
+    (:func:`_embed_shards`)."""
+    table = p["embedding"]
+    if hasattr(table, "placements"):
+        sizes = dict(zip(table.device_mesh.mesh_dim_names,
+                         table.device_mesh.shape))
+        if sizes.get("model", 1) > 1:
+            return _embed_shards(table, tokens.long()).to(cdt(cfg))
+    return F.embedding(tokens.long(), table).to(cdt(cfg))
+
+
+def _embed_shards(table: torch.Tensor, tokens: torch.Tensor
+                  ) -> torch.Tensor:
+    """The vocab-parallel lookup, through ``local_map``: each model rank
+    holds a contiguous block of rows (its "data" columns gathered, as
+    FSDP does) and returns the rows of its batch's tokens that fall in
+    it, zeros elsewhere; the sum over "model" (``Partial``) is the lookup.
+    The table's gradient sums over the batch shards. (torch 2.11's
+    DTensor cannot take F.embedding's backward over a sharded table.)"""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding.rules import local_placements
+    mesh = table.device_mesh
+    names = mesh.mesh_dim_names
+    rank = mesh.get_local_rank("model")
+    pt = tuple(Shard(0) if n == "model" else Replicate() for n in names)
+    pk = local_placements(mesh, tokens.shape, 0, None)
+    out = tuple(Partial() if n == "model" else p for n, p in zip(names, pk))
+    grad = tuple(Partial() if isinstance(q, Shard) else p
+                 for p, q in zip(pt, pk))
+
+    def local(tab, tok):
+        idx = tok - rank * tab.shape[0]
+        inside = (idx >= 0) & (idx < tab.shape[0])
+        rows = F.embedding(idx.clamp(0, tab.shape[0] - 1), tab)
+        return rows.masked_fill(~inside[..., None], 0.0)
+    return local_map(local, out_placements=list(out), in_placements=(pt, pk),
+                     in_grad_placements=(grad, pk), device_mesh=mesh,
+                     redistribute_inputs=True)(table, tokens)
 
 
 def unembed_apply(p: Params, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
@@ -355,6 +442,12 @@ def unembed_apply(p: Params, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     w = p["embedding"].t() if cfg.tie_embeddings else p["unembed"]
     logits = x.to(dt) @ w.to(dt)
     if cfg.phys_vocab != cfg.vocab_size:
+        if hasattr(logits, "placements"):
+            # a DTensor (torch 2.11's has no sharding rule for fill_)
+            pad = torch.arange(cfg.phys_vocab, device=logits.device
+                               ) >= cfg.vocab_size
+            return logits.masked_fill(replicated_like(pad, logits),
+                                      -math.inf)
         logits[..., cfg.vocab_size:] = -math.inf
     return logits
 
@@ -365,11 +458,11 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     per-position loss, in float32. −inf becomes −1e30, as the reference
     has it, so a padded entry adds exp(−1e30 − max) = 0 to the sum and
     its gradient is 0, not NaN."""
-    lf = logits.float()
+    lf = logits.float().reshape(-1, logits.shape[-1])
     lf = torch.where(torch.isinf(lf), -1e30, lf)
-    lse = torch.logsumexp(lf, -1)
-    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
-    return lse - gold
+    lse = torch.logsumexp(lf, -1, keepdim=True)
+    gold = torch.gather(lf, -1, labels.long().reshape(-1, 1))
+    return (lse - gold).reshape(labels.shape)
 
 
 def chunked_cross_entropy(p_embed: Params, h: torch.Tensor,

@@ -62,7 +62,10 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: LMConfig, groups: int = 1
               ) -> tuple[torch.Tensor, dict]:
     """x [B, S, D] → (y [B, S, D], {"lb_loss", "drop_frac"}): the Switch
     load-balance loss and the share of (token, choice) pairs dropped for
-    want of capacity, both float32 scalars."""
+    want of capacity, both float32 scalars. On DTensors it runs
+    :func:`_moe_one_rank`."""
+    if hasattr(x, "placements"):
+        return _moe_one_rank(p, x, cfg, groups)
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * S
@@ -124,3 +127,31 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: LMConfig, groups: int = 1
     for k in range(K):
         y = y + contrib[:, k]
     return y.reshape(B, S, D), aux
+
+
+def _moe_one_rank(p: Params, x: torch.Tensor, cfg: LMConfig, groups: int
+                  ) -> tuple[torch.Tensor, dict]:
+    """:func:`moe_apply` on DTensors of a mesh whose every dim has one rank
+    (the one-card host mesh), through ``local_map`` with every placement
+    replicated: the dispatch's gathers and scatters then see the plain
+    tensors (torch 2.11's DTensor propagates neither's backward). A mesh
+    of several ranks raises: sharded MoE (expert or tensor parallel, the
+    reference's groups per batch shard) is ROADMAP item 2a-ii."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    if mesh.size() > 1:
+        raise NotImplementedError(
+            f"moe_apply on a mesh of {mesh.size()} ranks is not ported "
+            f"(ROADMAP.md queue 1 item 2a-ii); the one-rank host mesh runs")
+    names = sorted(p)
+    rep = (Replicate(),) * mesh.ndim
+
+    def local(x, *leaves):
+        y, aux = moe_apply(dict(zip(names, leaves)), x, cfg, groups)
+        return y, aux["lb_loss"], aux["drop_frac"]
+    y, lb, drop = local_map(local, out_placements=(rep, rep, rep),
+                            in_placements=(rep,) * (1 + len(names)),
+                            device_mesh=mesh, redistribute_inputs=True
+                            )(x, *(p[k] for k in names))
+    return y, {"lb_loss": lb, "drop_frac": drop}

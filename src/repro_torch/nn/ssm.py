@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig
-from repro_torch.kernels.ssd.ops import ssd, ssd_trainable
+from repro_torch.kernels.ssd.ops import on_shards, ssd, ssd_trainable
 from repro_torch.nn.layers import _device, _full, _normal, cdt, pdt, rmsnorm
 
 Params = dict
@@ -70,7 +70,30 @@ def ssm_init(gen, cfg: LMConfig, lead: tuple = ()) -> Params:
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                  ) -> torch.Tensor:
-    """Depthwise causal conv. x [B,S,C], w [K,C] → [B,S,C]."""
+    """Depthwise causal conv. x [B,S,C], w [K,C] → [B,S,C]. On DTensors it
+    runs on each rank's shards (``local_map``; rows and channels are
+    independent, so x's placements are kept, w's and b's channels
+    following x's): torch 2.11's DTensor pads (``constant_pad_nd``) with
+    one placement whatever the mesh."""
+    if hasattr(x, "placements"):
+        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor.experimental import local_map
+        if any(isinstance(p, Shard) and p.dim == 1 for p in x.placements):
+            raise NotImplementedError("the causal conv on a mesh takes an "
+                                      "unsharded sequence")
+        from torch.distributed.tensor import Partial
+        wp = tuple(Shard(1) if isinstance(p, Shard) and p.dim == 2
+                   else Replicate() for p in x.placements)
+        bp = tuple(Shard(0) if isinstance(p, Shard) else p for p in wp)
+        # w's and b's gradients sum over the batch shards
+        over_b = [isinstance(p, Shard) and p.dim == 0 for p in x.placements]
+        wg, bg = ([Partial() if o else p for o, p in zip(over_b, q)]
+                  for q in (wp, bp))
+        return local_map(_causal_conv, out_placements=list(x.placements),
+                         in_placements=(x.placements, wp, bp),
+                         in_grad_placements=(x.placements, wg, bg),
+                         device_mesh=x.device_mesh,
+                         redistribute_inputs=True)(x, w, b)
     K, S = w.shape[0], x.shape[1]
     xp = F.pad(x, (0, 0, K - 1, 0))
     out = xp[:, 0:S, :] * w[0]
@@ -193,8 +216,13 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 def _trainable_scan(x, dt, A, B, C, chunk: int):
     """The training block's scan: ``ssd_chunked`` on the CPU (the
     reference's ``_ssm_block_full``), ``ssd_trainable`` on CUDA tensors;
-    the state is not returned on the card."""
+    the state is not returned on the card. DTensors on the CPU run
+    ``ssd_chunked`` on each rank's shards (``ops.on_shards``)."""
     if x.device.type == "cpu":
+        from torch.distributed.tensor import DTensor
+        if isinstance(x, DTensor):
+            return on_shards(lambda *a: ssd_chunked(*a, chunk=chunk),
+                             x, dt, A, B, C)
         return ssd_chunked(x, dt, A, B, C, chunk)
     return ssd_trainable(x, dt, A, B, C), None
 
@@ -262,6 +290,32 @@ def ssm_init_cache(cfg: LMConfig, batch: int, dtype, device=None,
     }
 
 
+def _ssm_step(state, dt, A, Bm, Cm, xh):
+    """One token's recurrence: state [B,nh,hp,N], dt [B,nh], A [nh],
+    Bm/Cm [B,nh,N], xh [B,nh,hp] → (new state, y [B,nh,hp]). On DTensors
+    it runs on each rank's rows and heads (``local_map``; torch 2.11's
+    DTensor cannot flatten its einsums' sharded batch and heads)."""
+    if hasattr(state, "placements"):
+        from torch.distributed.tensor.experimental import local_map
+
+        from repro_torch.sharding.rules import local_placements
+        mesh = state.device_mesh
+        model = dict(zip(mesh.mesh_dim_names, mesh.shape)).get("model", 1)
+        h = 1 if state.shape[1] % model == 0 else None
+        pl = [local_placements(mesh, t.shape, 0, h) for t in
+              (state, dt, Bm, Cm, xh)]
+        pa = local_placements(mesh, A.shape, None, 0 if h else None)
+        return local_map(_ssm_step, out_placements=(pl[0], pl[4]),
+                         in_placements=(pl[0], pl[1], pa, pl[2], pl[3],
+                                        pl[4]),
+                         device_mesh=mesh, redistribute_inputs=True
+                         )(state, dt, A, Bm, Cm, xh)
+    decay = torch.exp(dt * A)                                     # [B,nh]
+    state = (state * decay[..., None, None]
+             + torch.einsum("bh,bhn,bhp->bhpn", dt, Bm, xh))
+    return state, torch.einsum("bhn,bhpn->bhp", Cm, state)
+
+
 def ssm_block_decode(p: Params, x: torch.Tensor, cache: dict, cfg: LMConfig
                      ) -> tuple[torch.Tensor, dict]:
     """x: [B, 1, D] one token. Returns (y [B,1,D], new cache)."""
@@ -287,10 +341,7 @@ def ssm_block_decode(p: Params, x: torch.Tensor, cache: dict, cfg: LMConfig
                                     ).repeat_interleave(hr, 1).float()
     Cm = bcs[..., d["gn"]:].reshape(B_, cfg.ssm_groups, cfg.ssm_state
                                     ).repeat_interleave(hr, 1).float()
-    decay = torch.exp(dt * A)                                     # [B,nh]
-    state = (cache["state"] * decay[..., None, None]
-             + torch.einsum("bh,bhn,bhp->bhpn", dt, Bm, xh))
-    y = torch.einsum("bhn,bhpn->bhp", Cm, state)
+    state, y = _ssm_step(cache["state"], dt, A, Bm, Cm, xh)
     y = y + p["D_skip"][:, None] * xh
     y = y.reshape(B_, d["di"]).to(dt_)
     y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)

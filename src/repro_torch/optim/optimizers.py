@@ -17,7 +17,10 @@ parameter before the step (``p ← p·(1 − lr·wd)``) where the reference
 adds ``wd·p`` to the update, and it keeps its state inside the
 optimizer object rather than in a tree that checkpoints beside the
 params. Moments are float32 and ``step`` an int32 0-dim tensor on the
-params' device, as in the reference.
+params' device, as in the reference. On DTensors (a sharded step) the
+moments may be placed apart from their params (ZeRO-1): each leaf's
+update is computed in its moments' placement and redistributed to its
+param's (``_like``).
 """
 from __future__ import annotations
 
@@ -130,24 +133,39 @@ def adamw(lr: float | Schedule = 1e-3, b1: float = 0.9, b2: float = 0.999,
 
     def update(grads, state, params):
         step, lr_t, bc1, bc2 = scalars(state)
-        mu = tree_map(new_mu, state["mu"], grads)
-        nu = tree_map(new_nu, state["nu"], grads)
-        return (tree_map_with_path(
-            lambda path, p: delta(path, _get(mu, path), _get(nu, path), p,
-                                  lr_t, bc1, bc2), params),
+        mu = tree_map(lambda m, g: new_mu(m, _like(g, m)), state["mu"], grads)
+        nu = tree_map(lambda v, g: new_nu(v, _like(g, v)), state["nu"], grads)
+
+        def upd(path, p):
+            m = _get(mu, path)
+            return _like(delta(path, m, _get(nu, path), _like(p, m), lr_t,
+                               bc1, bc2), p)
+        return (tree_map_with_path(upd, params),
                 {"mu": mu, "nu": nu, "step": step})
 
     def update_(grads, state, params):
         step, lr_t, bc1, bc2 = scalars(state)
         for path, p in tree_paths(params):
-            g, m, v = (_get(t, path) for t in (grads, state["mu"],
-                                                state["nu"]))
+            m, v = _get(state["mu"], path), _get(state["nu"], path)
+            g = _like(_get(grads, path), m)
             m.copy_(new_mu(m, g))
             v.copy_(new_nu(v, g))
-            p.copy_(p + delta(path, m, v, p, lr_t, bc1, bc2))
+            p.copy_(p + _like(delta(path, m, v, _like(p, m), lr_t, bc1, bc2),
+                              p))
         state["step"].copy_(step)
 
     return Optimizer(init=init, update=update, update_=update_)
+
+
+def _like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``t`` in ``ref``'s placements when both are DTensors placed apart
+    (ZeRO-1 moments shard where their params replicate); else ``t``.
+    An in-place DTensor op does not redistribute ``self``, so each update
+    is computed in the moments' placement and moved explicitly."""
+    placements = getattr(ref, "placements", None)
+    if placements is None or t.placements == placements:
+        return t
+    return t.redistribute(ref.device_mesh, placements)
 
 
 def _get(tree: PyTree, path: str):

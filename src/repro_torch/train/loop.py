@@ -9,10 +9,15 @@ Composes the pieces that are tested one by one:
   ft.StragglerMonitor            per-step EMA/kσ outlier flags
   ft.PreemptionGuard             SIGTERM → drain + final checkpoint
 
-One step per iteration on one device, everything else (I/O, monitors)
-off the device's path. The reference's mesh argument has no counterpart
-until the sharding slice: ``device`` (default ``cuda``) is where the
-loop runs.
+One step per iteration, everything else (I/O, monitors) off the device's
+path. ``device`` (default ``cuda``) is where the loop runs; with a
+``mesh`` (``launch/mesh.py``; the reference's ``with mesh:``) the step is
+``build_train_step``'s sharded one and params, optimizer state and every
+batch are DTensors placed by its structs. A checkpoint stays
+framework-neutral either way: each leaf is gathered whole
+(``full_tensor()``) and rank 0 writes ``host_*.npz`` + ``index.json``;
+a restore reads the arrays and places them by their specs, as the
+reference restores with ``shardings=``.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from repro_torch.configs.base import LMConfig, ShapeConfig
 from repro_torch.data.tokens import TokenLoader, TokenStreamConfig
 from repro_torch.ft import PreemptionGuard, StragglerMonitor
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.sharding import rules
 from repro_torch.train.steps import build_train_step, model_of
 
 PyTree = Any
@@ -61,27 +67,42 @@ class LoopResult:
     parts: list = field(default_factory=list)
 
 
-def init_train_state(cfg: LMConfig, opt, device: torch.device
-                     ) -> tuple[PyTree, PyTree]:
+def init_train_state(cfg: LMConfig, opt, device: torch.device,
+                     structs: tuple | None = None) -> tuple[PyTree, PyTree]:
     """Params drawn from seed 0 on ``device`` (a CUDA generator draws on
     the card; ``encdec.init_params`` for an enc-dec config) and their
-    optimizer state."""
+    optimizer state. With ``structs`` (the sharded step's (params, opt)
+    structs) the params are placed by their specs and the optimizer state
+    is made in its own placements, each rank allocating its shards."""
     params = model_of(cfg).init_params(
         torch.Generator(device=device).manual_seed(0), cfg, device)
-    return params, opt.init(params)
+    if structs is None:
+        return params, opt.init(params)
+    p_sds, o_sds = structs
+    return rules.place_as(params, p_sds), rules.zeros(o_sds)
 
 
-def run(cfg: LMConfig, shape: ShapeConfig, loop: LoopConfig,
+def run(cfg: LMConfig, shape: ShapeConfig, loop: LoopConfig, mesh=None,
         log: Callable[[str], None] = print,
         extra_batch_fn: Callable[[dict], dict] | None = None,
         device: str | torch.device | None = None) -> LoopResult:
     """Train ``cfg`` on the synthetic token stream. Restartable: if a
     committed checkpoint exists under ``loop.ckpt_dir`` it resumes from it
-    (params, opt state, data cursor)."""
+    (params, opt state, data cursor). Every rank of a mesh runs this with
+    the same arguments; rank 0 logs and writes the checkpoints."""
     dev = resolve_device(device)
     result = LoopResult(final_step=0)
-    step_fn, _, opt = build_train_step(cfg, shape, lr=loop.lr, device=dev)
-    params, opt_state = init_train_state(cfg, opt, dev)
+    if mesh is None:
+        step_fn, _, opt = build_train_step(cfg, shape, lr=loop.lr,
+                                           device=dev)
+        params, opt_state = init_train_state(cfg, opt, dev)
+    else:
+        step_fn, (p_sds, o_sds, b_sds), opt = build_train_step(
+            cfg, shape, mesh, lr=loop.lr)
+        params, opt_state = init_train_state(cfg, opt, dev, (p_sds, o_sds))
+        lead = mesh.get_rank() == 0
+        if not lead:
+            log = lambda _: None          # noqa: E731
     loader = TokenLoader(TokenStreamConfig(
         vocab_size=cfg.vocab_size, seq_len=shape.seq_len,
         global_batch=shape.global_batch, seed=loop.seed))
@@ -92,6 +113,8 @@ def run(cfg: LMConfig, shape: ShapeConfig, loop: LoopConfig,
     start_step = 0
     if restored is not None:
         tree, extra = restored
+        if mesh is not None:
+            tree = rules.place_as(tree, {"params": p_sds, "opt": o_sds})
         params, opt_state = tree["params"], tree["opt"]
         start_step = int(extra.get("step", 0))
         loader.seek(start_step)
@@ -99,8 +122,12 @@ def run(cfg: LMConfig, shape: ShapeConfig, loop: LoopConfig,
         log(f"[loop] restored from step {start_step}")
 
     def save(step, blocking):
-        ckpt.save(step, {"params": params, "opt": opt_state},
-                  extra={"step": step}, blocking=blocking)
+        tree = {"params": params, "opt": opt_state}
+        if mesh is not None:
+            tree = rules.gather(tree)     # every rank takes part
+            if not lead:
+                return
+        ckpt.save(step, tree, extra={"step": step}, blocking=blocking)
 
     monitor = StragglerMonitor(k_sigma=loop.straggler_k_sigma)
     with PreemptionGuard() as guard:
@@ -110,6 +137,8 @@ def run(cfg: LMConfig, shape: ShapeConfig, loop: LoopConfig,
             if extra_batch_fn is not None:
                 batch = extra_batch_fn(batch)
             batch = {k: v.to(dev) for k, v in batch.items()}
+            if mesh is not None:
+                batch = rules.place_as(batch, b_sds)
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             loss = float(metrics["loss"])
             dt = time.perf_counter() - t0

@@ -1399,3 +1399,153 @@ def test_cuda_file_replay_through_k3_matches_cpu(cuda_device, tmp_path):
     assert np.abs(want.logits).max() > 0.05, "vacuous: the head never spiked"
     np.testing.assert_allclose(got.logits, want.logits, rtol=0, atol=1e-4)
     assert got.prediction == want.prediction
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-780m"])
+def test_cuda_mesh_builders_bit_identical_at_one_rank(cuda_device, arch):
+    """The sharding layer's builders on make_host_mesh() = (1, 1) over
+    cuda:0 (smoke variant): build_prefill_step, two build_serve_step
+    decode steps and two build_train_step steps give the unsharded path's
+    bits (logits, every cache leaf, loss, gnorm, every param and moment)
+    with the same K5 / K6 launches."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.ssd import ssd as sd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.serve.steps import (build_prefill_step,
+                                         build_serve_step, grow_cache)
+    from repro_torch.sharding import rules
+    from repro_torch.train.steps import build_train_step
+    from repro_torch.utils import tree_map, tree_paths
+    mesh = make_host_mesh(device="cuda")
+    assert tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda"
+    cfg = smoke_variant(get_config(arch))
+    B, S, n = 2, 64, 2
+    g = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S + n), generator=g
+                           ).to(cuda_device)
+    pstep, (p_sds, t_sds), scfg = build_prefill_step(
+        cfg, ShapeConfig("p", "prefill", S, B), mesh)
+    dstep, (_, tok_sds, _, c_sds), _ = build_serve_step(
+        cfg, ShapeConfig("d", "decode", S + n, B), mesh)
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            scfg, cuda_device)
+
+    def counts():
+        return dict(fa.LAUNCHES, **sd.LAUNCHES)
+    c0 = counts()
+    ref, rc = lm.prefill(params, tokens[:, :S], scfg, max_len=S + n)
+    plain = {k: v - c0[k] for k, v in counts().items()}
+    c0 = counts()
+    dp = rules.place_as(params, p_sds)
+    logits, cache = pstep(dp, rules.place_as(tokens[:, :S], t_sds))
+    assert {k: v - c0[k] for k, v in counts().items()} == plain
+    assert sum(plain.values()) == cfg.n_layers
+    assert torch.equal(logits.to_local(), ref)
+    cache = grow_cache(cache, c_sds)
+    for i in range(n):
+        pos = torch.tensor(S + i, device=cuda_device)
+        tok = tokens[:, S + i:S + i + 1]
+        lg, cache = dstep(dp, rules.place_as(tok, tok_sds), pos, cache)
+        want, rc = lm.decode_step(params, tok, pos, rc, scfg)
+        assert torch.equal(lg.to_local(), want), i
+    for (path, a), (_, b) in zip(tree_paths(cache), tree_paths(rc)):
+        assert torch.equal(a.to_local(), b), path
+
+    cfg = replace(cfg, compute_dtype="float32")
+    shape = ShapeConfig("t", "train", S, B)
+    step, (p_sds, o_sds, b_sds), _ = build_train_step(cfg, shape, mesh,
+                                                      lr=1e-3)
+    ustep, _, uopt = build_train_step(cfg, shape, lr=1e-3, device="cuda")
+    up = lm.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                        cuda_device)
+    dp = rules.place_as(tree_map(torch.clone, up), p_sds)
+    do, uo = rules.zeros(o_sds), uopt.init(up)
+    for i in range(2):
+        batch = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=g
+                                  ).to(cuda_device)
+                 for k in ("tokens", "labels")}
+        c0 = counts()
+        up, uo, um = ustep(up, uo, batch)
+        plain = {k: v - c0[k] for k, v in counts().items()}
+        c0 = counts()
+        dp, do, m = step(dp, do, rules.place_as(batch, b_sds))
+        assert {k: v - c0[k] for k, v in counts().items()} == plain
+        for k in ("loss", "gnorm"):
+            assert torch.equal(m[k], um[k]), (i, k)
+    for (path, a), (_, b) in zip(tree_paths({"p": dp, "o": do}),
+                                 tree_paths({"p": up, "o": uo})):
+        assert torch.equal(a.to_local(), b), path
+
+
+@pytest.mark.cuda
+def test_cuda_machine_gloo_mesh_matches_the_unsharded_port(cuda_device,
+                                                           tmp_path):
+    """tests/sharding_ranks.py under this machine's torch: internlm2-1.8b's
+    and mamba2-780m's smoke variants (float32 compute) on 4 gloo CPU ranks
+    forming a (2, 2) mesh, prefill + 2 decode steps + 2 train steps, held
+    to the port's unsharded run of the same inputs: serving within 2e-4
+    (and 2e-4 of a leaf's largest), the steps by tests/adam_close.py (loss
+    rtol 1e-5, gnorm 1e-4). The collectives reorder float32 sums."""
+    import os
+    import subprocess
+    import sys
+
+    from adam_close import close_state
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import lm
+    from repro_torch.utils import tree_paths
+    archs = ["internlm2-1.8b", "mamba2-780m"]
+    rng = np.random.default_rng(5)
+    inp = {"arch": np.array(archs)}
+    for arch in archs:
+        cfg = smoke_variant(get_config(arch))
+        p = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+        for path, t in tree_paths(p):
+            inp[f"{arch}/serve/{path}"] = t.float().numpy()
+            inp[f"{arch}/train/{path}"] = t.float().numpy()
+        inp[f"{arch}/prompt"] = rng.integers(0, cfg.vocab_size, (4, 16))
+        inp[f"{arch}/decode"] = rng.integers(0, cfg.vocab_size, (2, 4, 1))
+        for i in range(2):
+            for k in ("tokens", "labels"):
+                inp[f"{arch}/batch{i}/{k}"] = rng.integers(
+                    0, cfg.vocab_size, (4, 64))
+    src, dst = tmp_path / "in.npz", tmp_path / "out.npz"
+    np.savez(src, **inp)
+    here = os.path.dirname(__file__)
+    r = subprocess.run([sys.executable, os.path.join(here,
+                                                     "sharding_ranks.py"),
+                        str(src), str(dst), "--plain"], capture_output=True,
+                       text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    z = dict(np.load(dst))
+    for arch in archs:
+        keys = [k[len(f"plain/{arch}/"):] for k in z
+                if k.startswith(f"plain/{arch}/")]
+        assert keys
+        for k in keys:
+            if "/" in k and k.split("/")[0].startswith("step"):
+                continue
+            got, want = z[f"{arch}/{k}"], z[f"plain/{arch}/{k}"]
+            if k.startswith("loss"):
+                np.testing.assert_allclose(got, want, rtol=1e-5)
+            elif k.startswith("gnorm"):
+                np.testing.assert_allclose(got, want, rtol=1e-4)
+            else:
+                np.testing.assert_allclose(
+                    got, want, rtol=2e-4,
+                    atol=2e-4 * max(1.0, np.abs(want).max()), err_msg=k)
+        carry = {}
+        for i in range(2):
+            pre = f"step{i}/"
+            got = {k[len(f"{arch}/{pre}"):]: v for k, v in z.items()
+                   if k.startswith(f"{arch}/{pre}")}
+            want = {k[len(f"plain/{arch}/{pre}"):]: v for k, v in z.items()
+                    if k.startswith(f"plain/{arch}/{pre}")}
+            assert got and set(got) == set(want)
+            close_state(got, want, i + 1, 1e-3, carry)

@@ -86,9 +86,10 @@ def _rel_err(got, want) -> float:
 @pytest.mark.parametrize("arch", PORTED)
 def test_configs_match_the_reference(arch):
     """Logical and TP-padded shapes equal the reference's, full and smoke;
-    the port's config has every field of the reference's but the sharding
-    knobs and ``moe_impl`` (which the reference's moe_apply never reads)."""
-    unread = {"weight_sharding", "zero1", "moe_impl"}
+    the port's config has every field of the reference's, the sharding
+    knobs included, but ``moe_impl`` (which the reference's moe_apply
+    never reads)."""
+    unread = {"moe_impl"}
     port_fields = {f.name for f in dataclasses.fields(get_config(arch))}
     ref_fields = {f.name for f in dataclasses.fields(j_get_config(arch))}
     assert port_fields == ref_fields - unread

@@ -329,20 +329,20 @@ def test_bf16_prefill_then_decode_matches_reference(arch):
 # ---------------------------------------------------------------------------
 
 def test_training_both_families_is_refused(tmp_path, capsys):
-    """Both families train on one device now
-    (tests/test_torch_lm_train_cross.py); the training launcher still
-    refuses them on a sharded mesh (--production-mesh, --multi-pod: exit
-    2, nothing written), and the serve launcher still refuses both
-    (SlotServer takes token prompts alone)."""
+    """Both families train (tests/test_torch_lm_train_cross.py); the
+    training launcher refuses the production meshes on a one-rank job
+    (--production-mesh needs 256 ranks, --multi-pod 512: exit 2, nothing
+    written), and the serve launcher still refuses both (SlotServer takes
+    token prompts alone)."""
     from repro_torch.launch import serve
     from repro_torch.launch import train as launcher
     for arch in (VLM, ENCDEC):
-        for flag in ("--production-mesh", "--multi-pod"):
+        for flag, need in (("--production-mesh", 256), ("--multi-pod", 512)):
             ck = tmp_path / f"{arch}{flag}"
             assert launcher.main(["--arch", arch, "--smoke", flag,
                                   "--ckpt-dir", str(ck)]) == 2
             err = capsys.readouterr().err
-            assert err.startswith("error:") and "queue 1 item 2a" in err
+            assert err.startswith("error:") and f"needs {need} ranks" in err
             assert not ck.exists()
         assert serve.main(["--arch", arch, "--smoke", "--device", "cpu"]) == 2
         assert "SlotServer" in capsys.readouterr().err

@@ -430,22 +430,23 @@ def test_flash_attention_plain_wide_heads(d, causal, kv_len):
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "grok-1-314b"])
 def test_training_launcher_refuses_moe(arch, tmp_path, capsys):
-    """MoE trains on one device (tests/test_torch_lm_train_families.py);
-    the launcher still refuses it on a sharded mesh, which is not ported
-    (exit 2, nothing written)."""
+    """MoE trains (tests/test_torch_lm_train_families.py); the launcher's
+    production mesh needs 256 ranks, so a one-rank job exits 2, writing
+    nothing."""
     from repro_torch.launch import train as launcher
     assert launcher.main(["--arch", arch, "--smoke", "--production-mesh",
                           "--ckpt-dir", str(tmp_path)]) == 2
     err = capsys.readouterr().err
-    assert err.startswith("error:") and "not ported yet" in err
+    assert err.startswith("error:") and "needs 256 ranks" in err
     assert not list(tmp_path.iterdir())
 
 
 def test_moe_and_hybrid_training_are_refused(tmp_path, capsys):
     """Training refuses no family now: each of the ten configs at full
     width passes the trainability check (moe, hybrid, GeGLU, qk-norm,
-    padded heads, vlm, enc-dec). What stays refused is a sharded mesh:
-    the launcher exits 2 for each with --multi-pod, writing nothing."""
+    padded heads, vlm, enc-dec). The launcher exits 2 for each with
+    --multi-pod on a one-rank job (it needs 512 ranks), writing
+    nothing."""
     from repro_torch.configs import list_archs
     from repro_torch.launch import train as launcher
     from repro_torch.train.steps import check_trainable
@@ -454,5 +455,5 @@ def test_moe_and_hybrid_training_are_refused(tmp_path, capsys):
         assert launcher.main(["--arch", arch, "--multi-pod", "--ckpt-dir",
                               str(tmp_path)]) == 2
         err = capsys.readouterr().err
-        assert err.startswith("error:") and "not ported yet" in err
+        assert err.startswith("error:") and "needs 512 ranks" in err
     assert not list(tmp_path.iterdir())

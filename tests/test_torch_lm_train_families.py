@@ -388,8 +388,9 @@ def test_train_steps_match_the_reference(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_launcher_trains_the_smoke_variant(arch, tmp_path, capsys):
-    """launch/train.py --smoke on the CPU trains both families (exit 0);
-    --production-mesh still exits 2, naming the sharded step builders."""
+    """launch/train.py --smoke on the CPU trains both families (exit 0)
+    on the host mesh; --production-mesh exits 2 on this one-rank job,
+    naming the 256 ranks it needs."""
     from repro_torch.launch import train as launcher
     assert launcher.main(["--device", "cpu", "--smoke", "--arch", arch,
                           "--steps", "2", "--batch", "2", "--seq", "32",
@@ -398,5 +399,5 @@ def test_launcher_trains_the_smoke_variant(arch, tmp_path, capsys):
     assert launcher.main(["--arch", arch, "--production-mesh",
                           "--ckpt-dir", str(tmp_path / "mesh")]) == 2
     err = capsys.readouterr().err
-    assert err.startswith("error:") and "queue 1 item 2a" in err
+    assert err.startswith("error:") and "needs 256 ranks" in err
     assert not (tmp_path / "mesh").exists()

@@ -348,14 +348,16 @@ def test_launcher_trains_checkpoints_and_resumes(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--production-mesh"], "sharded step builders"),
-    (["--multi-pod"], "sharded step builders"),
+    (["--production-mesh"], "needs 256 ranks"),
+    (["--multi-pod"], "needs 512 ranks"),
     (["--arch", "seamless-m4t-large-v2", "--production-mesh"],
-     "not ported yet"),
-    (["--arch", "llama-3.2-vision-90b", "--multi-pod"], "not ported yet"),
+     "needs 256 ranks"),
+    (["--arch", "llama-3.2-vision-90b", "--multi-pod"], "needs 512 ranks"),
     (["--arch", "no-such-arch"], "unknown arch"),
 ])
 def test_launcher_refuses_what_is_not_ported(argv, what, tmp_path, capsys):
+    """A production mesh on a one-rank job (it needs 256 or 512 ranks)
+    and an unknown arch: exit 2, nothing written."""
     assert launcher.main(argv + ["--smoke", "--ckpt-dir",
                                  str(tmp_path)]) == 2
     err = capsys.readouterr().err
