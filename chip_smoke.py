@@ -127,7 +127,7 @@ no ``ok`` line):
                 cut to 4 of 64 layers; ``LM_DEPTH``) through the flash-attention
                 kernel, mamba2-780m through the SSD kernel, zamba2-7b
                 (hybrid) through both: SlotServer with batch 4, 8 requests
-                of 2048 prompt tokens and 32 generated, counters set to 0
+                of 2048 prompt tokens and 16 generated, counters set to 0
                 before and read after, one prefill and one decode step
                 under torch.profiler, peak device memory; then, in float32
                 compute, prefill S tokens and decode token S against the
@@ -171,15 +171,23 @@ no ``ok`` line):
                 the vlm);
  11. mesh     — the sharding layer (``phase_mesh``, ``MESH_RUNS``):
                 ``make_host_mesh()`` = (1, 1) over cuda:0 (a one-rank
-                group over an in-process store); internlm2-1.8b and
-                mamba2-780m at full published width through
-                build_prefill_step (4 x 2048), 32 build_serve_step decode
-                steps and 3 build_train_step steps (4 and 8 x 2048), each
-                against the unsharded path in the same run: every logit,
-                cache leaf, loss, gnorm and updated param bit-identical,
-                the same K5 / K6 launches, host-clock ms and peak memory
-                of both; launch/train.py --production-mesh / --multi-pod
-                exit 2 on this one-rank job.
+                group over an in-process store); at full published width
+                through build_prefill_step (4 x 2048), 16
+                build_serve_step decode steps and 3 build_train_step
+                steps: internlm2-1.8b and mamba2-780m (4 and 8 x 2048
+                training), granite-moe-1b-a400m (24 layers, MoE's
+                per-rank dispatch, capacity 1.25 in training), zamba2-7b
+                (27 of 81 layers, K5 d 112 and K6), seamless-m4t-large-v2
+                (24 + 24 layers, frames) and llama-3.2-vision-90b (5 of
+                100 layers, one cross_every group, img_embed; served
+                only); then one internlm2-1.8b step at grad_accum=2;
+                each against the unsharded path in the same run: every
+                logit, cache leaf, loss, gnorm and updated param
+                bit-identical (for MoE each step's lb and every drop share
+                too), the same K5 / K6 launches, host-clock ms and peak
+                memory of both, seconds per arch; launch/train.py
+                --production-mesh / --multi-pod exit 2 on this one-rank
+                job.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -249,7 +257,9 @@ LM_CROSS = ("llama-3.2-vision-90b", "seamless-m4t-large-v2")
 # step at 17 % busy): 32 layers halve the phase's time, the script's to
 # keep under its limit as phases are added
 LM_DEPTH = {"grok-1-314b": 4, "llama-3.2-vision-90b": 20, "qwen3-32b": 32}
-LM_BATCH, LM_REQUESTS, LM_PROMPT, LM_GEN = 4, 8, 2048, 32
+# 16 generated tokens a request: the eager decode is host-bound (15-17 %
+# busy), and the script has to stay inside its limit as phases are added
+LM_BATCH, LM_REQUESTS, LM_PROMPT, LM_GEN = 4, 8, 2048, 16
 LM_LOGIT_ATOL = 1e-3      # full-width prefill(S) + decode vs prefill(S + 1)
 TRAIN_STEPS = 3           # unfrozen steps, then as many under freeze_p2m
 # train steps on cuda vs the CPU: float32 convolutions summed in another
@@ -514,8 +524,9 @@ def phase_p2m_conv(torch, ops, pc, events, params, p2m_cfg, circuits,
                           flush=flush),
             "fma_ms": time_ms(lambda: pc.p2m_conv_cuda(*args_off, **consts),
                               torch, flush=flush),
+            # ~0.5 s a call: 5 timed runs, as K6's plain version
             "plain_ms": time_ms(lambda: ops.p2m_conv_events_ref(
-                *args, **consts), torch, flush=flush),
+                *args, **consts), torch, reps=5, flush=flush),
             "bound_ms": b, "bound_by": by, "library_ms": None}
         torch.cuda.empty_cache()
         print_row(rows[n_cfg], f"n_cfg={n_cfg} B={B} T={T} n_sub={n_sub} "
@@ -907,7 +918,7 @@ def phase_lm(torch, arch: str, counters) -> dict:
     """One architecture at full published width (grok-1-314b at the depth
     ``LM_DEPTH`` cuts it to) behind the serving entry point: seeded bf16
     weights drawn on the card, a SlotServer of 4 lanes serving 8 requests
-    of 2048 prompt tokens and 32 generated tokens with every counter set
+    of 2048 prompt tokens and 16 generated tokens with every counter set
     to 0 just before and read just after; one prefill and one decode step
     under torch.profiler; then the float32-compute check that prefill(S) +
     decode(token S) gives the last logits of prefill(S + 1). Peak device
@@ -1497,8 +1508,8 @@ def train_over_reckoning(torch) -> None:
               f" float32 params, grads and two AdamW moments) against the "
               f"card's {card:.1f} GB, and {16 * n_params(cfg) / 1e9:.0f} GB "
               f"at all {cfg.n_layers} layers; it trains on its smoke variant "
-              f"here, at full width once the sharded step builders are "
-              f"ported (ROADMAP.md queue 1 item 2a)")
+              f"here, at full width through the mesh builders on a machine "
+              f"of several cards")
 
 
 def profile_train_step(torch, cfg, batch: int) -> None:
@@ -1821,11 +1832,20 @@ def phase_lm_train(torch, counters) -> dict:
 
 # [mesh]: the builders on the one-rank (1, 1) host mesh at full published
 # width, against the unsharded path in the same run: (arch, serving batch,
-# training batch); prompts of MESH_PROMPT tokens, MESH_GEN decode steps,
-# MESH_TRAIN_STEPS train steps of MESH_TRAIN_SEQ tokens a row
-MESH_RUNS = (("internlm2-1.8b", 4, 4), ("mamba2-780m", 4, 8))
-MESH_PROMPT, MESH_GEN = 2048, 32
+# training batch or 0 for none); prompts of MESH_PROMPT tokens, MESH_GEN
+# decode steps, MESH_TRAIN_STEPS train steps of MESH_TRAIN_SEQ tokens a
+# row. Depth cuts, widths unchanged (MESH_DEPTH): zamba2-7b at 3 of its 9
+# groups, as [lm train] trains it; llama-3.2-vision-90b at one of its 20
+# groups (4 self- and 1 cross-attention layers), served only: a group's
+# training state is 103.2 GB.
+MESH_RUNS = (("internlm2-1.8b", 4, 4), ("mamba2-780m", 4, 8),
+             ("granite-moe-1b-a400m", 4, 4), ("zamba2-7b", 4, 4),
+             ("seamless-m4t-large-v2", 4, 4), ("llama-3.2-vision-90b", 4, 0))
+MESH_DEPTH = {"zamba2-7b": 27, "llama-3.2-vision-90b": 5}
+MESH_PROMPT, MESH_GEN = 2048, 16
 MESH_TRAIN_STEPS, MESH_TRAIN_SEQ = 3, 2048
+# one internlm2-1.8b step at grad_accum=2 (batch 4 x 2048) on the mesh
+MESH_ACCUM = ("internlm2-1.8b", 4, 2)
 
 
 def timed(torch, fn):
@@ -1848,42 +1868,73 @@ def fresh_base(torch) -> float:
     return torch.cuda.memory_allocated()
 
 
+def mesh_extras(torch, cfg, batch: int, seq: int, seed: int) -> list:
+    """The vlm's img_embed [batch, n_image_tokens, vision_dim] or the
+    enc-dec's frames [batch, seq, d_model], seeded, in the compute dtype
+    on the card ([] for the other families)."""
+    from repro_torch.nn.layers import cdt
+    g = torch.Generator().manual_seed(seed)
+    if cfg.family == "vlm":
+        shape = (batch, cfg.n_image_tokens, cfg.vision_dim)
+    elif cfg.is_encdec:
+        shape = (batch, seq, cfg.d_model)
+    else:
+        return []
+    return [torch.randn(shape, generator=g).to("cuda", cdt(cfg))]
+
+
 def mesh_serve(torch, arch: str, batch: int, mesh, counters) -> dict:
-    """Prefill of [batch, MESH_PROMPT] tokens and MESH_GEN decode steps
-    (fixed seeded tokens), unsharded (``lm.prefill`` / ``decode_step``)
-    and through ``build_prefill_step`` / ``build_serve_step`` on ``mesh``
-    from the same seeded bf16 weights: every logit and cache leaf must be
-    the same bits, with the same K5 / K6 launches. Each path prefills
-    twice, the first call's time reported apart (DTensor's sharding cache
-    starts cold), the second's outputs kept; its peak is net of the
-    weights."""
-    from repro_torch.configs import get_config
+    """Prefill of [batch, MESH_PROMPT] tokens (and the vlm's img_embed or
+    the enc-dec's frames) and MESH_GEN decode steps (fixed seeded tokens),
+    unsharded (the model API's ``prefill`` / ``decode_step``) and through
+    ``build_prefill_step`` / ``build_serve_step`` on ``mesh`` from the
+    same seeded bf16 weights: every logit and cache leaf must be the same
+    bits, with the same K5 / K6 launches. Each path prefills twice, the
+    first call's time reported apart (DTensor's sharding cache starts
+    cold), the second's outputs kept; its peak is net of the weights. The
+    enc-dec's cross cache holds P + n positions in the serve step (the
+    reference's build_serve_step): the grown cache, and so the unsharded
+    one here, pads it with zero keys."""
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.models import lm
     from repro_torch.serve.steps import (build_prefill_step, build_serve_step,
                                          grow_cache, serve_config)
     from repro_torch.sharding import rules
-    from repro_torch.utils import tree_paths
-    cfg = get_config(arch)
+    from repro_torch.train.steps import model_of
+    from repro_torch.utils import tree_map, tree_paths
+    cfg = lm_config(arch, MESH_DEPTH)
     scfg = serve_config(cfg)
+    mod = model_of(cfg)
     P, n = MESH_PROMPT, MESH_GEN
     g = torch.Generator().manual_seed(7)
     prompt = torch.randint(0, cfg.vocab_size, (batch, P), generator=g)
     dec = torch.randint(0, cfg.vocab_size, (n, batch, 1), generator=g)
     prompt, dec = prompt.to("cuda"), dec.to("cuda")
-    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
-                            scfg, "cuda")
-    pstep, (p_sds, t_sds), _ = build_prefill_step(
+    extra = mesh_extras(torch, scfg, batch, P, 8)
+    params = mod.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             scfg, "cuda")
+    pstep, (p_sds, t_sds, *e_sds), _ = build_prefill_step(
         cfg, ShapeConfig("mesh", "prefill", P, batch), mesh)
     dstep, (_, tok_sds, _, c_sds), _ = build_serve_step(
         cfg, ShapeConfig("mesh", "decode", P + n, batch), mesh)
+
+    def plain_prefill():
+        if cfg.is_encdec:
+            lg, c = mod.prefill(params, extra[0], prompt, scfg, max_len=P + n)
+            c["cross"] = tree_map(lambda t: torch.nn.functional.pad(
+                t, (0, 0, 0, 0, 0, n)), c["cross"])
+            return lg, c
+        return mod.prefill(params, prompt, scfg,
+                           img_embed=extra[0] if extra else None,
+                           max_len=P + n)
     paths = {
-        "plain": (lambda: lm.prefill(params, prompt, scfg, max_len=P + n),
-                  lambda i, cache: lm.decode_step(
+        "plain": (plain_prefill,
+                  lambda i, cache: mod.decode_step(
                       params, dec[i], torch.tensor(P + i, device="cuda"),
                       cache, scfg)),
         "mesh": (lambda: (lambda lg, c: (lg, grow_cache(c, c_sds)))(
-                     *pstep(dp, rules.place_as(prompt, t_sds))),
+                     *pstep(dp, rules.place_as(prompt, t_sds),
+                            *(rules.place_as(e, s)
+                              for e, s in zip(extra, e_sds)))),
                  lambda i, cache: dstep(
                      dp, rules.place_as(dec[i], tok_sds),
                      torch.tensor(P + i, device="cuda"), cache))}
@@ -1922,7 +1973,11 @@ def mesh_serve(torch, arch: str, batch: int, mesh, counters) -> dict:
         fail(f"[mesh] {arch} serve: launches {b['launches']} on the mesh, "
              f"{a['launches']} unsharded")
     med = {k: sorted(v["dec_ms"])[n // 2] for k, v in res.items()}
-    print(f"[mesh] {arch} serve at full width, batch {batch}, prompt {P}, "
+    print(f"[mesh] {arch} serve at full width, {cfg.n_layers} layers"
+          f"{f' + {cfg.encoder_layers} encoder' if cfg.is_encdec else ''}, "
+          f"batch {batch}, prompt {P}"
+          f"{' with img_embed' if cfg.family == 'vlm' else ''}"
+          f"{' with frames' if cfg.is_encdec else ''}, "
           f"{n} decode steps: {len(a['outs'])} outputs bit-identical "
           f"(logits and every cache leaf); prefill {b['pre_ms']:.1f} ms on "
           f"the mesh vs {a['pre_ms']:.1f} unsharded (first call "
@@ -1940,26 +1995,32 @@ def mesh_serve(torch, arch: str, batch: int, mesh, counters) -> dict:
             "decode_ms": (med["mesh"], med["plain"])}
 
 
-def mesh_train(torch, arch: str, batch: int, mesh, counters) -> dict:
-    """MESH_TRAIN_STEPS steps of ``build_train_step`` at full published
-    width, unsharded and on ``mesh`` (params and opt state placed by the
-    step's structs), each from the same seeded params on the same seeded
-    batches: loss, gnorm and every updated param must be the same bits,
-    with the same K6 launches (none of K5). The unsharded run's final
-    params stay on the card for the comparison; the mesh run's peak is
-    read net of what was alive before it."""
-    from repro_torch.configs import get_config
+def mesh_train(torch, arch: str, batch: int, mesh, counters,
+               steps: int = MESH_TRAIN_STEPS, accum: int = 1) -> dict:
+    """``steps`` steps of ``build_train_step`` (at ``grad_accum=accum``) at
+    full published width, unsharded and on ``mesh`` (params and opt state
+    placed by the step's structs), each from the same seeded params on the
+    same seeded batches (the vlm's img_embed, the enc-dec's frames): loss,
+    gnorm and every updated param must be the same bits, with the same K6
+    launches (none of K5); for MoE also each step's lb and every
+    ``moe_apply`` call's drop share (the forward's and remat's recompute's,
+    in order). The unsharded run's final params are copied to the host
+    for the comparison; each run's peak is read net of what was alive
+    before it."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.sharding import rules
-    from repro_torch.train.steps import build_train_step, model_of
-    from repro_torch.utils import tree_paths
-    cfg = get_config(arch)
+    from repro_torch.train.steps import (build_train_step, make_batch_specs,
+                                         model_of)
+    from repro_torch.utils import tree_map, tree_paths
+    cfg = lm_config(arch, MESH_DEPTH)
     shape = ShapeConfig("mesh", "train", MESH_TRAIN_SEQ, batch)
     g = torch.Generator().manual_seed(11)
-    batches = [{k: torch.randint(0, cfg.vocab_size, (batch, MESH_TRAIN_SEQ),
-                                 generator=g).to("cuda")
-                for k in ("tokens", "labels")}
-               for _ in range(MESH_TRAIN_STEPS)]
+    specs = make_batch_specs(cfg, shape)
+    batches = [{k: (torch.randint(0, cfg.vocab_size, tuple(v.shape),
+                                  generator=g) if v.dtype == torch.int64
+                    else torch.randn(tuple(v.shape), generator=g)
+                    ).to("cuda", v.dtype)
+                for k, v in specs.items()} for _ in range(steps)]
 
     def fresh():
         return model_of(cfg).init_params(
@@ -1968,38 +2029,51 @@ def mesh_train(torch, arch: str, batch: int, mesh, counters) -> dict:
     for path in ("plain", "mesh"):
         base = fresh_base(torch)
         if path == "plain":
-            step, _, opt = build_train_step(cfg, shape, device="cuda")
+            step, _, opt = build_train_step(cfg, shape, device="cuda",
+                                            grad_accum=accum)
             params = fresh()
             state = opt.init(params)
             feed = batches
         else:
-            step, (p_sds, o_sds, b_sds), opt = build_train_step(cfg, shape,
-                                                                mesh)
+            step, (p_sds, o_sds, b_sds), opt = build_train_step(
+                cfg, shape, mesh, grad_accum=accum)
             params = rules.place_as(fresh(), p_sds)
             state = rules.zeros(o_sds)
             feed = [rules.place_as(b, b_sds) for b in batches]
         zero(counters)
         ms, metrics = [], []
-        for b in feed:
-            (params, state, m), t = timed(torch, lambda: step(params, state,
-                                                              b))
-            ms.append(t)
-            metrics.append((m["loss"], m["gnorm"]))
+        with recorded_drops() as drops:
+            for b in feed:
+                (params, state, m), t = timed(torch, lambda: step(
+                    params, state, b))
+                ms.append(t)
+                metrics.append({k: m[k] for k in ("loss", "gnorm", "lb")
+                                if k in m})
         launches = read(counters)
         res[path] = dict(ms=ms, metrics=metrics, launches=launches,
+                         drops=[rules.local(d) for d in drops],
                          peak=(torch.cuda.max_memory_allocated() - base)
                          / 1e9)
         del state
         if path == "plain":
-            kept = params
+            kept = tree_map(lambda t: t.cpu(), params)
+            del params
     a, b = res["plain"], res["mesh"]
     bad = [f"step {i + 1} {k}" for i, (x, y) in enumerate(zip(a["metrics"],
                                                              b["metrics"]))
-           for k, u, v in (("loss", x[0], y[0]), ("gnorm", x[1], y[1]))
-           if not torch.equal(u, v)]
+           for k in x if k not in y or not torch.equal(x[k], y[k])]
+    bad += [f"drop share {i}" for i, (x, y) in enumerate(zip(a["drops"],
+                                                            b["drops"]))
+            if not torch.equal(x, y)]
+    if len(a["drops"]) != len(b["drops"]):
+        bad.append(f"{len(b['drops'])} moe_apply calls on the mesh, "
+                   f"{len(a['drops'])} unsharded")
+    if cfg.n_experts and not (a["drops"] and all(
+            "lb" in x for x in a["metrics"])):
+        bad.append("no drop share or lb recorded")
     bad += [p for (p, x), (_, y) in zip(tree_paths(kept),
                                         tree_paths(params))
-            if not torch.equal(x, y.to_local())]
+            if not torch.equal(x, y.to_local().cpu())]
     if bad:
         fail(f"[mesh] {arch} train: {bad[:8]} ({len(bad)}) differ from the "
              f"unsharded path's")
@@ -2007,16 +2081,20 @@ def mesh_train(torch, arch: str, batch: int, mesh, counters) -> dict:
         fail(f"[mesh] {arch} train: launches {b['launches']} on the mesh, "
              f"{a['launches']} unsharded")
     n_leaves = len(list(tree_paths(kept)))
-    print(f"[mesh] {arch} train at full width, batch {batch} x "
-          f"{MESH_TRAIN_SEQ}, {MESH_TRAIN_STEPS} steps: loss "
-          f"{[float(x) for x, _ in b['metrics']]}, gnorm "
-          f"{[float(y) for _, y in b['metrics']]} and all {n_leaves} param "
-          f"leaves bit-identical to the unsharded run; step ms on the mesh "
-          f"{[round(t, 1) for t in b['ms']]} vs "
+    moe = (f", lb {[float(x['lb']) for x in b['metrics']]} and "
+           f"{len(b['drops'])} drop shares (mean "
+           f"{sum(float(d) for d in b['drops']) / len(b['drops']):.4f})"
+           if cfg.n_experts else "")
+    print(f"[mesh] {arch} train at full width, {cfg.n_layers} layers, "
+          f"batch {batch} x {MESH_TRAIN_SEQ}"
+          f"{f', grad_accum {accum}' if accum > 1 else ''}, {steps} "
+          f"steps: loss {[float(x['loss']) for x in b['metrics']]}, gnorm "
+          f"{[float(x['gnorm']) for x in b['metrics']]}{moe} and all "
+          f"{n_leaves} param leaves bit-identical to the unsharded run; "
+          f"step ms on the mesh {[round(t, 1) for t in b['ms']]} vs "
           f"{[round(t, 1) for t in a['ms']]} (host clock; step 1 with "
           f"DTensor's sharding cache cold); peak {b['peak']:.2f} GB vs "
-          f"{a['peak']:.2f} GB allocated over what was alive before (the "
-          f"unsharded run's final params, kept for the comparison); "
+          f"{a['peak']:.2f} GB allocated over what was alive before; "
           f"launches { {k: v for k, v in b['launches'].items() if v} }")
     del res, kept, params
     torch.cuda.empty_cache()
@@ -2026,13 +2104,14 @@ def mesh_train(torch, arch: str, batch: int, mesh, counters) -> dict:
 def phase_mesh(torch, counters) -> dict:
     """[mesh]: ``make_host_mesh()`` on this one-card job ((1, 1) over
     cuda:0, a one-rank group over an in-process store), the serving and
-    training builders of ``MESH_RUNS`` at full published width on it,
-    bit-identical to the unsharded path in the same run (at one rank
-    every placement replicates, so the same kernels see the same
-    tensors), with their host-clock times and peaks beside the unsharded
-    path's; then launch/train.py's production meshes on this job (exit 2,
-    naming the ranks they need). Returns the mesh runs' launches by
-    arch."""
+    training builders of ``MESH_RUNS`` at full published width on it, and
+    ``MESH_ACCUM``'s grad_accum step, bit-identical to the unsharded path
+    in the same run (at one rank every placement replicates, so the same
+    kernels see the same tensors: MoE's per-rank dispatch runs in one
+    group on every expert), with their host-clock times and peaks beside
+    the unsharded path's; then launch/train.py's production meshes on this
+    job (exit 2, naming the ranks they need). Returns the mesh runs'
+    launches by arch."""
     import io
     from repro_torch.launch import train as launcher
     from repro_torch.launch.mesh import make_host_mesh
@@ -2044,11 +2123,19 @@ def phase_mesh(torch, counters) -> dict:
     out = {}
     for arch, serve_b, train_b in MESH_RUNS:
         t0 = time.perf_counter()
-        s = mesh_serve(torch, arch, serve_b, mesh, counters)
-        t = mesh_train(torch, arch, train_b, mesh, counters)
-        out[arch] = {k: s["launches"][k] + t["launches"][k]
-                     for k in s["launches"]}
-        print(f"[mesh] {arch} {time.perf_counter() - t0:.1f} s")
+        out[arch] = mesh_serve(torch, arch, serve_b, mesh, counters
+                               )["launches"]
+        if train_b:
+            t = mesh_train(torch, arch, train_b, mesh, counters)
+            out[arch] = {k: v + t["launches"][k]
+                         for k, v in out[arch].items()}
+        print(f"[mesh] {arch} {time.perf_counter() - t0:.1f} s; "
+              f"nvidia-smi {nvidia_smi()}")
+    arch, batch, accum = MESH_ACCUM
+    t0 = time.perf_counter()
+    mesh_train(torch, arch, batch, mesh, counters, steps=1, accum=accum)
+    print(f"[mesh] {arch} grad_accum {accum} {time.perf_counter() - t0:.1f} "
+          f"s; nvidia-smi {nvidia_smi()}")
     for flag, need in (("--production-mesh", 256), ("--multi-pod", 512)):
         err = io.StringIO()
         with contextlib.redirect_stderr(err):
@@ -4303,10 +4390,12 @@ def main() -> int:
     # or at the seamless encoder's (d 64, its decoder cross alike)
     causal_row = {112: "_d112", 256: "_d256"}
     noncausal_row = {128: "_vlm_cross", 64: "_encoder"}
-    fa_launches = {"": sum(n["flash_attention"] for n in lm_train.values())
-                   + sum(n["flash_attention"] for n in mesh_runs.values()),
+    fa_launches = {"": sum(n["flash_attention"] for n in lm_train.values()),
                    "_d112": 0, "_d256": 0, "_vlm_cross": 0, "_encoder": 0}
-    for arch, run in lm_runs.items():
+    runs = list(lm_runs.items()) + [
+        (arch, {"head_dim": lm_config(arch, MESH_DEPTH).head_dim,
+                "launches": n}) for arch, n in mesh_runs.items()]
+    for arch, run in runs:
         hd, n = run["head_dim"], run["launches"]
         fa_launches[causal_row.get(hd, "")] += n["flash_attention"]
         if n["flash_attention_noncausal"]:
@@ -4323,7 +4412,7 @@ def main() -> int:
          + lm_train["mamba2-780m"]["ssd"] + mesh_runs["mamba2-780m"]["ssd"]),
         (ssd_rows["bfloat16_zamba2"], "ssd_zamba2", "ssd.cu", "ssd/ssd.py:85",
          lm_runs["zamba2-7b"]["launches"]["ssd"]
-         + lm_train["zamba2-7b"]["ssd"])]
+         + lm_train["zamba2-7b"]["ssd"] + mesh_runs["zamba2-7b"]["ssd"])]
     for row, name, source, replaces, n in lm_kernels:
         kernels.append({
             "name": name, "route": "cuda",

@@ -8,8 +8,8 @@ degraded link; the loop's policy hook decides what to do (log, or
 checkpoint). Tests drive it with a simulated clock.
 
 ``HeartbeatTracker`` — liveness bookkeeping for N workers. A worker missing
-``timeout_s`` of heartbeats is dead; the reference's elastic planner
-(``ft/elastic.py``, not ported yet) consumes the dead set.
+``timeout_s`` of heartbeats is dead; the elastic planner
+(``ft/elastic.plan_remesh``) takes the survivors' count.
 
 ``PreemptionGuard`` — converts SIGTERM/SIGINT into a polled flag so the
 training loop can finish its step, write a final checkpoint, and exit

@@ -474,22 +474,25 @@ def decode_step(params: Params, token: torch.Tensor, pos: torch.Tensor,
                 _layer(blocks, i), shard_batch(h),
                 {k: v[i] for k, v in cache.items()}, cfg))
     elif cfg.family == "hybrid":
+        # pinned at each block, as the ssm and dense families' are
         n_groups, k_blocks = _groups(cfg)
         for g in range(n_groups):
             for j in range(k_blocks):
-                h = _ssm_block_decode(
-                    _layer(blocks, (g, j)), h,
-                    {k: v[g, j] for k, v in cache["ssm"].items()}, cfg)
-            h = _attn_block_decode(params["shared"], h,
-                                   cache["attn"]["k"][g],
-                                   cache["attn"]["v"][g], pos, cfg)
+                h = shard_batch(_ssm_block_decode(
+                    _layer(blocks, (g, j)), shard_batch(h),
+                    {k: v[g, j] for k, v in cache["ssm"].items()}, cfg))
+            h = shard_batch(_attn_block_decode(params["shared"], h,
+                                               cache["attn"]["k"][g],
+                                               cache["attn"]["v"][g], pos,
+                                               cfg))
     else:
         n_groups, k_blocks = _groups(cfg)
         sc, xc = cache["self"], cache["cross"]
         for g in range(n_groups):
             for j in range(k_blocks):
-                h = _attn_block_decode(_layer(blocks, (g, j)), h,
-                                       sc["k"][g, j], sc["v"][g, j], pos, cfg)
+                h = shard_batch(_attn_block_decode(
+                    _layer(blocks, (g, j)), shard_batch(h), sc["k"][g, j],
+                    sc["v"][g, j], pos, cfg))
             h = _cross_block_decode(_layer(params["cross_blocks"], g), h,
                                     xc["k"][g], xc["v"][g], cfg)
     h = L.rmsnorm(h, params["final_norm"], cfg.norm_eps)
@@ -592,23 +595,27 @@ def prefill(params: Params, tokens: torch.Tensor, cfg: LMConfig,
                 _layer(blocks, i), shard_batch(h),
                 {k: v[i] for k, v in cache.items()}, cfg))
     elif cfg.family == "hybrid":
+        # pinned at each SSM block, as the ssm family's blocks are
         n_groups, k_blocks = _groups(cfg)
         for g in range(n_groups):
             for j in range(k_blocks):
-                h = _ssm_block_prefill(
-                    _layer(blocks, (g, j)), h,
-                    {k: v[g, j] for k, v in cache["ssm"].items()}, cfg)
+                h = shard_batch(_ssm_block_prefill(
+                    _layer(blocks, (g, j)), shard_batch(h),
+                    {k: v[g, j] for k, v in cache["ssm"].items()}, cfg))
             h, k, v = _attn_block_prefill(params["shared"], h, cfg,
                                           positions)
+            h = shard_batch(h)
             cache["attn"]["k"][g, :, :S] = k
             cache["attn"]["v"][g, :, :S] = v
     else:
         n_groups, k_blocks = _groups(cfg)
         sc, xc = cache["self"], cache["cross"]
         for g in range(n_groups):
+            h = shard_batch(h)
             for j in range(k_blocks):
                 h, k, v = _attn_block_prefill(_layer(blocks, (g, j)), h, cfg,
                                               positions)
+                h = shard_batch(h)
                 sc["k"][g, j, :, :S] = k
                 sc["v"][g, j, :, :S] = v
             h, k, v = _cross_block_prefill(_layer(params["cross_blocks"], g),

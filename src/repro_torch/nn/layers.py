@@ -457,12 +457,15 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
     """logits [..., V] (may hold the −inf pad mask), labels [...] → the
     per-position loss, in float32. −inf becomes −1e30, as the reference
     has it, so a padded entry adds exp(−1e30 − max) = 0 to the sum and
-    its gradient is 0, not NaN."""
-    lf = logits.float().reshape(-1, logits.shape[-1])
+    its gradient is 0, not NaN. The leading dims stay as they are: on a
+    mesh DTensor may shard flattened rows over "model" as well as the
+    batch axes, which no longer folds back into a batch of as many rows
+    as batch shards."""
+    lf = logits.float()
     lf = torch.where(torch.isinf(lf), -1e30, lf)
     lse = torch.logsumexp(lf, -1, keepdim=True)
-    gold = torch.gather(lf, -1, labels.long().reshape(-1, 1))
-    return (lse - gold).reshape(labels.shape)
+    gold = torch.gather(lf, -1, labels.long()[..., None])
+    return (lse - gold)[..., 0]
 
 
 def chunked_cross_entropy(p_embed: Params, h: torch.Tensor,

@@ -13,7 +13,13 @@ on CUDA, whose order (and so the bits) changes from run to run.
 
 ``groups`` splits the tokens into that many independent dispatch groups
 (capacity, ranks and the placement stay inside a group), the reference's
-mesh-local dispatch. One card has no mesh, so every path passes 1.
+mesh-local dispatch. Callers pass none: the count is the mesh's batch
+shards (``sharding/rules.batch_groups``), so each data shard dispatches
+its own rows, and 1 without a mesh or on the one-card ``(1, 1)`` mesh.
+On a mesh every rank runs the same per-rank dispatch (``_moe_on_mesh``)
+on its own groups, with its experts (EP mode, the experts split over
+"model") or its slice of every expert's d_ff (TP mode); one code path at
+every rank count.
 
 Training differentiates ``moe_apply`` as it stands, at the config's
 capacity factor (serving passes ``serve/steps.serve_config``'s dropless
@@ -34,6 +40,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.nn.layers import _act, _normal, cdt, pdt
+from repro_torch.sharding import rules
 
 Params = dict
 
@@ -58,20 +65,46 @@ def capacity(n_tokens: int, cfg: LMConfig) -> int:
     return max(8, -(-c // 8) * 8)
 
 
-def moe_apply(p: Params, x: torch.Tensor, cfg: LMConfig, groups: int = 1
-              ) -> tuple[torch.Tensor, dict]:
+def moe_apply(p: Params, x: torch.Tensor, cfg: LMConfig,
+              groups: int | None = None) -> tuple[torch.Tensor, dict]:
     """x [B, S, D] → (y [B, S, D], {"lb_loss", "drop_frac"}): the Switch
     load-balance loss and the share of (token, choice) pairs dropped for
-    want of capacity, both float32 scalars. On DTensors it runs
-    :func:`_moe_one_rank`."""
-    if hasattr(x, "placements"):
-        return _moe_one_rank(p, x, cfg, groups)
+    want of capacity, both float32 scalars, over every group.
+
+    ``groups`` defaults to the batch shards of x's mesh, or of the
+    ambient mesh (``rules.current_mesh``) for a plain tensor, as the
+    reference's ``_batch_groups``: 1 without a mesh. On DTensors it runs
+    :func:`_moe_on_mesh`."""
     B, S, D = x.shape
-    E, K = cfg.n_experts, cfg.top_k
     T = B * S
-    G = groups
+    G = groups if groups is not None else rules.batch_groups(
+        getattr(x, "device_mesh", None) or rules.current_mesh(), T)
     if G < 1 or T % G:
         raise ValueError(f"{G} dispatch groups do not divide {T} tokens")
+    if hasattr(x, "placements"):
+        return _moe_on_mesh(p, x, cfg, G)
+    y, density, density_prob, kept = _dispatch(p, x, cfg, G, 0)
+    return y, _aux(density, density_prob, kept, cfg)
+
+
+def _aux(density, density_prob, kept, cfg: LMConfig) -> dict:
+    return {"lb_loss": cfg.n_experts * (density * density_prob).sum(),
+            "drop_frac": 1.0 - kept}
+
+
+def _dispatch(p: Params, x: torch.Tensor, cfg: LMConfig, G: int, e0: int
+              ) -> tuple[torch.Tensor, ...]:
+    """The grouped dispatch of x [B, S, D] in ``G`` groups onto the
+    experts ``p`` holds: all ``E`` of them, or ``p["wg"].shape[0]`` from
+    expert ``e0`` on (a rank's share in EP mode), each whole or a d_ff
+    slice of it (TP mode). Returns (y, density, density_prob, kept): y
+    holds these experts' (or this slice's) share of every output, the
+    rest the means over the groups behind the load-balance loss and the
+    drop share (top-1 density, mean router probability, kept share)."""
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    El = p["wg"].shape[0]
+    T = B * S
     Tg = T // G
     Cg = capacity(Tg, cfg)
     dt = cdt(cfg)
@@ -94,10 +127,9 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: LMConfig, groups: int = 1
     keep = rank < Cg
     density = F.one_hot(expert_idx[..., 0], E).float().mean(dim=(0, 1))
     density_prob = probs.mean(dim=(0, 1))
-    aux = {"lb_loss": E * (density * density_prob).sum(),
-           "drop_frac": 1.0 - keep.float().mean()}
+    kept = keep.float().mean()
 
-    # place the kept (token, choice) rows into per-group [E * Cg, D]
+    # place the kept (token, choice) rows into per-group [El * Cg, D]
     # buffers by a gather: each slot reads the one choice that fills it
     # (kept slots are distinct), an empty slot the zero row n. A dropped
     # choice writes its index into a spare column of its own, so the
@@ -109,16 +141,21 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: LMConfig, groups: int = 1
                      ).scatter(1, torch.where(keep, slot, E * Cg + j), j)
     rows = torch.cat([xg.to(dt).repeat(1, K, 1),              # row j: token
                       xg.new_zeros((G, 1, D), dtype=dt)], 1)  # j mod Tg
-    buf = torch.gather(rows, 1, src[:, :E * Cg, None].expand(-1, -1, D))
+    buf = torch.gather(rows, 1, src[:, e0 * Cg:(e0 + El) * Cg, None]
+                       .expand(-1, -1, D))
 
-    # the experts' GLU over expert-major [E, G*Cg, D]
-    bufe = buf.reshape(G, E, Cg, D).transpose(0, 1).reshape(E, G * Cg, D)
+    # the experts' GLU over expert-major [El, G*Cg, D]
+    bufe = buf.reshape(G, El, Cg, D).transpose(0, 1).reshape(El, G * Cg, D)
     h = _act(torch.bmm(bufe, p["wg"].to(dt)), cfg.act)
     h = h * torch.bmm(bufe, p["wu"].to(dt))
-    out = torch.bmm(h, p["wd"].to(dt))                        # [E, G*Cg, D]
-    outg = out.reshape(E, G, Cg, D).transpose(0, 1).reshape(G, E * Cg, D)
+    out = torch.bmm(h, p["wd"].to(dt))                       # [El, G*Cg, D]
+    outg = out.reshape(El, G, Cg, D).transpose(0, 1).reshape(G, El * Cg, D)
 
-    # combine: each token's K weighted outputs summed in choice order
+    # combine: each token's K weighted outputs summed in choice order (a
+    # choice of an expert held elsewhere weighs 0 here)
+    if El != E:
+        keep = keep & (flat_e >= e0) & (flat_e < e0 + El)
+        slot = torch.clamp(slot - e0 * Cg, 0, El * Cg - 1)
     w = (gate_vals.transpose(1, 2).reshape(G, K * Tg)
          * keep.float()).to(dt)                               # [G, K*Tg]
     contrib = (torch.gather(outg, 1, slot[..., None].expand(-1, -1, D))
@@ -126,32 +163,50 @@ def moe_apply(p: Params, x: torch.Tensor, cfg: LMConfig, groups: int = 1
     y = torch.zeros((G, Tg, D), dtype=dt, device=dev)
     for k in range(K):
         y = y + contrib[:, k]
-    return y.reshape(B, S, D), aux
+    return y.reshape(B, S, D), density, density_prob, kept
 
 
-def _moe_one_rank(p: Params, x: torch.Tensor, cfg: LMConfig, groups: int
-                  ) -> tuple[torch.Tensor, dict]:
-    """:func:`moe_apply` on DTensors of a mesh whose every dim has one rank
-    (the one-card host mesh), through ``local_map`` with every placement
-    replicated: the dispatch's gathers and scatters then see the plain
-    tensors (torch 2.11's DTensor propagates neither's backward). A mesh
-    of several ranks raises: sharded MoE (expert or tensor parallel, the
-    reference's groups per batch shard) is ROADMAP item 2a-ii."""
+def _moe_on_mesh(p: Params, x: torch.Tensor, cfg: LMConfig, G: int
+                 ) -> tuple[torch.Tensor, dict]:
+    """:func:`moe_apply` on DTensors, at any rank count: each rank runs
+    :func:`_dispatch` on its own groups and its experts (EP) or d_ff slice
+    (TP) through ``local_map``, in ``rules.moe_placements``. The
+    dispatch's gathers and scatters then see plain tensors (torch 2.11's
+    DTensor propagates neither's backward). y leaves as a ``Partial`` sum
+    over "model" when the weights split there; the means behind the aux
+    outputs as each rank's share of a sum over the batch shards, reduced
+    here. At one rank every placement replicates, and the bits are the
+    unsharded call's."""
     from torch.distributed.tensor import Replicate
     from torch.distributed.tensor.experimental import local_map
     mesh = x.device_mesh
-    if mesh.size() > 1:
-        raise NotImplementedError(
-            f"moe_apply on a mesh of {mesh.size()} ranks is not ported "
-            f"(ROADMAP.md queue 1 item 2a-ii); the one-rank host mesh runs")
-    names = sorted(p)
-    rep = (Replicate(),) * mesh.ndim
+    pl = rules.moe_placements(cfg, mesh, tuple(x.shape))
+    if G % pl.row_shards:
+        raise ValueError(f"{G} dispatch groups do not split over "
+                         f"{pl.row_shards} batch shards")
+    ep = pl.split and pl.mode == "EP"
+    m_rank = mesh.get_local_rank("model") if pl.split else 0
+    El = cfg.n_experts // (rules.axis_sizes(mesh)["model"] if ep else 1)
+    e0 = m_rank * El if ep else 0
+    names = ("router", "wg", "wu", "wd")
+    nb = pl.row_shards
 
     def local(x, *leaves):
-        y, aux = moe_apply(dict(zip(names, leaves)), x, cfg, groups)
-        return y, aux["lb_loss"], aux["drop_frac"]
-    y, lb, drop = local_map(local, out_placements=(rep, rep, rep),
-                            in_placements=(rep,) * (1 + len(names)),
-                            device_mesh=mesh, redistribute_inputs=True
-                            )(x, *(p[k] for k in names))
-    return y, {"lb_loss": lb, "drop_frac": drop}
+        y, density, density_prob, kept = _dispatch(
+            dict(zip(names, leaves)), x, cfg, G // nb, e0)
+        if nb > 1:
+            density, density_prob, kept = (t / nb for t in (
+                density, density_prob, kept))
+        if m_rank:
+            # counted on the first "model" rank alone: the router's
+            # gradient through the load-balance loss joins the Partial
+            # sum its gradient through y is over "model"
+            density_prob = torch.zeros_like(density_prob)
+        return y, density, density_prob, kept
+    y, *means = local_map(
+        local, out_placements=(pl.y, pl.sums, pl.prob_sums, pl.sums),
+        in_placements=(pl.x,) + tuple(pl.weights[k] for k in names),
+        in_grad_placements=(pl.y,) + tuple(pl.grads[k] for k in names),
+        device_mesh=mesh, redistribute_inputs=True)(x, *(p[k] for k in names))
+    rep = (Replicate(),) * mesh.ndim
+    return y, _aux(*(t.redistribute(mesh, rep) for t in means), cfg)

@@ -120,6 +120,81 @@ def _moe_mode(cfg: LMConfig) -> str:
     return "EP" if cfg.n_experts and cfg.n_experts % tp == 0 else "TP"
 
 
+def batch_groups(mesh, total_tokens: int) -> int:
+    """MoE dispatch groups (the reference's ``_batch_groups``): the number
+    of batch shards of ``mesh`` (its "pod" × "data" sizes) when that
+    divides ``total_tokens``, else 1; 1 without a mesh. Capacity, ranks
+    and the placement stay inside a group, so no group crosses a batch
+    shard."""
+    if mesh is None:
+        return 1
+    g = _batch_size(mesh)
+    return g if g > 1 and total_tokens % g == 0 else 1
+
+
+class MoEPlacements(NamedTuple):
+    """Per-rank placements of one ``moe_apply`` call on a mesh (see
+    :func:`moe_placements`), one tuple per mesh dim each."""
+    mode: str            # "EP" or "TP" (``_moe_mode``)
+    split: bool          # experts (EP) or d_ff (TP) split over "model"
+    row_shards: int      # batch shards x's rows are split into
+    x: tuple             # x [B, S, D]
+    y: tuple             # y, and x's gradient
+    weights: dict        # router, wg, wu, wd as each rank computes on them
+    grads: dict          # their gradients
+    sums: tuple          # a per-rank share of a mean over all groups
+    prob_sums: tuple     # the same, for the load-balance loss's probs
+
+
+def moe_placements(cfg: LMConfig, mesh, x_shape: tuple[int, ...]
+                   ) -> MoEPlacements:
+    """The placements ``nn/moe.moe_apply`` computes in on ``mesh``.
+
+    x's rows shard over the batch axes where B divides them (each rank
+    then dispatches its own groups) and replicate over "model". The
+    router replicates. EP mode splits the experts (dim 0 of wg, wu and
+    wd) over "model", TP mode d_ff (wg's and wu's dim 2, wd's dim 1),
+    where the count divides it; the "data" (FSDP) shards of a "2d"
+    config's weights are gathered. A split leaves y a ``Partial`` sum
+    over "model": a rank holds its experts' (EP) or its d_ff slice's (TP)
+    share of every token's output. Gradients of weights a rank holds
+    whole sum over the batch shards, and x's and the router's over
+    "model" when split. A mean over all groups (the load-balance loss's
+    terms, the drop share) is each rank's share summed over the batch
+    shards; the router's probabilities' share counts on the first
+    "model" rank alone when split, so that the router's gradient is one
+    ``Partial`` sum there."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    sizes = axis_sizes(mesh)
+    E, Fd = cfg.n_experts, cfg.d_ff
+    mode = _moe_mode(cfg)
+    m = sizes.get("model", 1)
+    split = m > 1 and (E if mode == "EP" else Fd) % m == 0
+    rows = (x_shape[0] % _batch_size(mesh) == 0 and _batch_size(mesh) > 1)
+    bat = set(batch_axes(mesh))
+
+    def per_dim(on_batch, on_model):
+        return tuple(
+            Replicate() if sizes[n] == 1 else
+            on_batch if n in bat else on_model if n == "model"
+            else Replicate() for n in mesh.mesh_dim_names)
+    sum_b = Partial() if rows else Replicate()
+    on_m = Partial() if split else Replicate()
+    x = per_dim(Shard(0) if rows else Replicate(), Replicate())
+    y = per_dim(Shard(0) if rows else Replicate(), on_m)
+    dims = ({"wg": 0, "wu": 0, "wd": 0} if mode == "EP"
+            else {"wg": 2, "wu": 2, "wd": 1})
+    weights = {"router": per_dim(Replicate(), Replicate())}
+    grads = {"router": per_dim(sum_b, on_m)}
+    for k, d in dims.items():
+        on_w = Shard(d) if split else Replicate()
+        weights[k], grads[k] = per_dim(Replicate(), on_w), per_dim(sum_b,
+                                                                   on_w)
+    return MoEPlacements(mode, split, _batch_size(mesh) if rows else 1, x,
+                         y, weights, grads, per_dim(sum_b, Replicate()),
+                         per_dim(sum_b, on_m))
+
+
 def _resolve(spec: tuple | None, mesh, fsdp_on: bool,
              shape: tuple[int, ...]) -> Spec:
     if spec is None:

@@ -189,26 +189,57 @@ def _sharded_step(cfg: LMConfig, shape: ShapeConfig, mesh, lr: float,
     """``build_train_step`` on ``mesh``. ``step(params, opt_state, batch)``
     takes DTensors placed by the returned structs and returns them so
     placed (written in place with ``donate``); its metrics are plain
-    tensors, the same on every rank."""
-    if grad_accum != 1:
-        raise NotImplementedError(
-            "grad_accum > 1 on a mesh is not ported; the one-device step "
-            "(mesh=None) takes it")
+    tensors, the same on every rank.
+
+    ``grad_accum > 1`` splits the batch as the reference does: microbatch
+    ``i`` is the global rows ``[i B/a, (i+1) B/a)``, pinned to the batch
+    placement (``rules.shard_batch``), not each rank's local rows taken in
+    turn (MoE at capacity drops other tokens under the two splits). Each
+    microbatch's gradients are reduced to their params' placements and
+    summed in float32 from zeros, then divided by ``a``; the loss is the
+    mean of the microbatch losses and the metrics hold nothing else, as in
+    the reference."""
     opt = adamw(lr)
     loss_fn = _loss_for(cfg)
+    B = shape.global_batch
+    if grad_accum < 1 or B % grad_accum:
+        raise ValueError(f"grad_accum {grad_accum} does not divide the "
+                         f"global batch {B}")
+    mb = B // grad_accum
     p_sds, p_specs = param_structs(cfg, mesh)
     o_sds, _ = opt_structs(opt, p_sds, p_specs, cfg, mesh)
     b_sds = make_batch_specs(cfg, shape, mesh)
+
+    def grads_of(params, batch):
+        loss, metrics, grads = _grads(loss_fn, cfg, params, batch)
+        # the gradients of params the batch shards do not split are
+        # partial sums: reduce each to its param's placements
+        return loss, metrics, tree_map(
+            lambda g, p: g.redistribute(mesh, p.placements), grads, params)
 
     def step(params, opt_state, batch):
         for name, sds in b_sds.items():
             rules.check_placed(f"batch[{name!r}]", batch[name], sds)
         with rules.use_mesh(mesh):
-            loss, metrics, grads = _grads(loss_fn, cfg, params, batch)
-            # the gradients of params the batch shards do not split are
-            # partial sums: reduce each to its param's placements
-            grads = tree_map(lambda g, p: g.redistribute(mesh, p.placements),
-                             grads, params)
+            if grad_accum > 1:
+                from torch.distributed.tensor import full
+                g_sum = tree_map(lambda p: full(
+                    tuple(p.shape), 0.0, dtype=torch.float32,
+                    device_mesh=mesh, placements=p.placements), params)
+                loss_sum, n = (full((), v, dtype=torch.float32,
+                                    device_mesh=mesh,
+                                    placements=rules.placements((), mesh))
+                               for v in (0.0, grad_accum))
+                for i in range(grad_accum):
+                    micro = {k: rules.shard_batch(v[i * mb:(i + 1) * mb])
+                             for k, v in batch.items()}
+                    loss, _, g = grads_of(params, micro)
+                    g_sum = tree_map(torch.add, g_sum, g)
+                    loss_sum = loss_sum + loss
+                grads = tree_map(lambda g: g / n, g_sum)
+                loss, metrics = loss_sum / n, {}
+            else:
+                loss, metrics, grads = grads_of(params, batch)
             with torch.no_grad():
                 gnorm = clip_by_global_norm_(grads, grad_clip)
                 if donate:

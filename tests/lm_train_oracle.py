@@ -8,6 +8,7 @@ vlm's ``img_embed`` or the enc-dec's ``frames`` (standard normal,
 float32; each side casts them to its compute dtype)."""
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
@@ -217,13 +218,18 @@ def step_batches(cfg, B: int, S: int, n: int = 3) -> list[dict]:
 
 
 def reference_steps(jcfg, jp, B: int, S: int, batches, lr: float,
-                    grad_accum: int = 1):
+                    grad_accum: int = 1, in_mesh: bool = True,
+                    metrics: list | None = None):
     """The reference's build_train_step in its host mesh: per step (loss,
     gnorm, params, opt state) as numpy; params and opt state go through
     numpy between calls (its outputs' shardings are rejected by its next
-    call)."""
+    call). ``in_mesh=False`` builds the step on the host mesh and calls it
+    outside it: the reference's moe_apply raises inside its host mesh
+    (ROADMAP.md queue 3). ``metrics`` (a list) takes each step's other
+    metrics ({"ce", "lb"}; none under grad_accum) as floats."""
     out = []
-    with make_host_mesh() as mesh:
+    mesh = make_host_mesh()
+    with mesh if in_mesh else contextlib.nullcontext():
         step, _, opt = j_build_train_step(jcfg, JShapeConfig("t", "train",
                                                              S, B),
                                           mesh, lr=lr, donate=False,
@@ -234,6 +240,9 @@ def reference_steps(jcfg, jp, B: int, S: int, batches, lr: float,
                                       for k, v in b.items()})
             jp, jo = (jax.tree.map(np.asarray, t) for t in (jp, jo))
             out.append((float(m["loss"]), float(m["gnorm"]), jp, jo))
+            if metrics is not None:
+                metrics.append({k: float(v) for k, v in m.items()
+                                if k not in ("loss", "gnorm")})
             jp, jo = (jax.tree.map(jnp.asarray, t) for t in (jp, jo))
     return out
 

@@ -1402,13 +1402,18 @@ def test_cuda_file_replay_through_k3_matches_cpu(cuda_device, tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-780m"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-780m",
+                                  "granite-moe-1b-a400m", "zamba2-7b",
+                                  "llama-3.2-vision-90b",
+                                  "seamless-m4t-large-v2"])
 def test_cuda_mesh_builders_bit_identical_at_one_rank(cuda_device, arch):
     """The sharding layer's builders on make_host_mesh() = (1, 1) over
-    cuda:0 (smoke variant): build_prefill_step, two build_serve_step
-    decode steps and two build_train_step steps give the unsharded path's
-    bits (logits, every cache leaf, loss, gnorm, every param and moment)
-    with the same K5 / K6 launches."""
+    cuda:0 (smoke variant): build_prefill_step (with the vlm's img_embed
+    or the enc-dec's frames), two build_serve_step decode steps and two
+    build_train_step steps give the unsharded path's bits (logits, every
+    cache leaf, loss, gnorm, every param and moment; MoE's lb and drop
+    shares, with drops from an embedding shifted by its std) with the same
+    K5 / K6 launches."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config, smoke_variant
@@ -1416,43 +1421,69 @@ def test_cuda_mesh_builders_bit_identical_at_one_rank(cuda_device, arch):
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.ssd import ssd as sd
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import lm
+    from repro_torch.nn import moe
     from repro_torch.serve.steps import (build_prefill_step,
                                          build_serve_step, grow_cache)
     from repro_torch.sharding import rules
-    from repro_torch.train.steps import build_train_step
+    from repro_torch.train.steps import build_train_step, model_of
     from repro_torch.utils import tree_map, tree_paths
     mesh = make_host_mesh(device="cuda")
     assert tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda"
     cfg = smoke_variant(get_config(arch))
+    mod = model_of(cfg)
     B, S, n = 2, 64, 2
     g = torch.Generator().manual_seed(3)
     tokens = torch.randint(0, cfg.vocab_size, (B, S + n), generator=g
                            ).to(cuda_device)
-    pstep, (p_sds, t_sds), scfg = build_prefill_step(
+    pstep, (p_sds, t_sds, *e_sds), scfg = build_prefill_step(
         cfg, ShapeConfig("p", "prefill", S, B), mesh)
     dstep, (_, tok_sds, _, c_sds), _ = build_serve_step(
         cfg, ShapeConfig("d", "decode", S + n, B), mesh)
-    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
-                            scfg, cuda_device)
+    extra = [torch.randn(tuple(e.shape), generator=g).to(cuda_device,
+                                                         e.dtype)
+             for e in e_sds]
+    params = mod.init_params(torch.Generator(device="cuda").manual_seed(0),
+                             scfg, cuda_device)
 
     def counts():
         return dict(fa.LAUNCHES, **sd.LAUNCHES)
     c0 = counts()
-    ref, rc = lm.prefill(params, tokens[:, :S], scfg, max_len=S + n)
+    if cfg.is_encdec:
+        ref, rc = mod.prefill(params, extra[0], tokens[:, :S], scfg,
+                              max_len=S + n)
+        # the serve step's cross cache holds S + n positions, the grown
+        # one zero keys there
+        rc["cross"] = tree_map(lambda t: torch.nn.functional.pad(
+            t, (0, 0, 0, 0, 0, n)), rc["cross"])
+    else:
+        ref, rc = mod.prefill(params, tokens[:, :S], scfg,
+                              img_embed=extra[0] if extra else None,
+                              max_len=S + n)
     plain = {k: v - c0[k] for k, v in counts().items()}
     c0 = counts()
     dp = rules.place_as(params, p_sds)
-    logits, cache = pstep(dp, rules.place_as(tokens[:, :S], t_sds))
+    logits, cache = pstep(dp, rules.place_as(tokens[:, :S], t_sds),
+                          *(rules.place_as(e, s) for e, s in zip(extra,
+                                                                 e_sds)))
     assert {k: v - c0[k] for k, v in counts().items()} == plain
-    assert sum(plain.values()) == cfg.n_layers
+    # one K5 launch per attention call (causal for self-attention, not for
+    # cross and encoder attention), one K6 launch per SSM block
+    cross = {"vlm": cfg.n_layers // max(cfg.cross_every, 1),
+             "audio": cfg.encoder_layers + cfg.n_layers}.get(cfg.family, 0)
+    assert plain == {
+        "flash_attention": {"ssm": 0,
+                            "hybrid": cfg.n_layers // max(cfg.attn_every, 1),
+                            "vlm": cfg.n_layers - cross
+                            }.get(cfg.family, cfg.n_layers),
+        "flash_attention_noncausal": cross,
+        "ssd": cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0}
     assert torch.equal(logits.to_local(), ref)
     cache = grow_cache(cache, c_sds)
     for i in range(n):
         pos = torch.tensor(S + i, device=cuda_device)
         tok = tokens[:, S + i:S + i + 1]
         lg, cache = dstep(dp, rules.place_as(tok, tok_sds), pos, cache)
-        want, rc = lm.decode_step(params, tok, pos, rc, scfg)
+        want, rc = mod.decode_step(params, tok, pos, rc, scfg)
         assert torch.equal(lg.to_local(), want), i
     for (path, a), (_, b) in zip(tree_paths(cache), tree_paths(rc)):
         assert torch.equal(a.to_local(), b), path
@@ -1461,22 +1492,88 @@ def test_cuda_mesh_builders_bit_identical_at_one_rank(cuda_device, arch):
     shape = ShapeConfig("t", "train", S, B)
     step, (p_sds, o_sds, b_sds), _ = build_train_step(cfg, shape, mesh,
                                                       lr=1e-3)
-    ustep, _, uopt = build_train_step(cfg, shape, lr=1e-3, device="cuda")
+    ustep, specs, uopt = build_train_step(cfg, shape, lr=1e-3,
+                                          device="cuda")
+    up = mod.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                         cuda_device)
+    if cfg.n_experts:
+        emb = up["embed"]["embedding"]
+        emb.add_(emb.std())
+    dp = rules.place_as(tree_map(torch.clone, up), p_sds)
+    do, uo = rules.zeros(o_sds), uopt.init(up)
+    drops, apply = [], moe.moe_apply
+
+    def recording(*a, **kw):
+        y, aux = apply(*a, **kw)
+        drops.append(rules.local(aux["drop_frac"]).item())
+        return y, aux
+    moe.moe_apply = recording
+    try:
+        for i in range(2):
+            batch = {k: (torch.randint(0, cfg.vocab_size, tuple(v.shape),
+                                       generator=g)
+                         if v.dtype == torch.int64
+                         else torch.randn(tuple(v.shape), generator=g)
+                         ).to(cuda_device)
+                     for k, v in specs.items()}
+            c0 = counts()
+            drops.clear()
+            up, uo, um = ustep(up, uo, batch)
+            plain, plain_drops = ({k: v - c0[k] for k, v in
+                                   counts().items()}, list(drops))
+            c0 = counts()
+            drops.clear()
+            dp, do, m = step(dp, do, rules.place_as(batch, b_sds))
+            assert {k: v - c0[k] for k, v in counts().items()} == plain
+            assert drops == plain_drops
+            assert set(m) == set(um)
+            for k in um:
+                assert torch.equal(m[k], um[k]), (i, k)
+            if cfg.n_experts:
+                assert len(drops) == cfg.n_layers and max(drops) > 0
+    finally:
+        moe.moe_apply = apply
+    for (path, a), (_, b) in zip(tree_paths({"p": dp, "o": do}),
+                                 tree_paths({"p": up, "o": uo})):
+        assert torch.equal(a.to_local(), b), path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "granite-moe-1b-a400m"])
+def test_cuda_mesh_grad_accum_bit_identical_at_one_rank(cuda_device, arch):
+    """Two build_train_step steps at grad_accum=2 on the (1, 1) host mesh
+    over cuda:0 (smoke variant, float32 compute) give the one-device
+    grad_accum=2 step's bits: loss, gnorm, every param and moment."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import lm
+    from repro_torch.sharding import rules
+    from repro_torch.train.steps import build_train_step
+    from repro_torch.utils import tree_map, tree_paths
+    mesh = make_host_mesh(device="cuda")
+    cfg = replace(smoke_variant(get_config(arch)), compute_dtype="float32")
+    B, S = 4, 64
+    shape = ShapeConfig("t", "train", S, B)
+    step, (p_sds, o_sds, b_sds), _ = build_train_step(
+        cfg, shape, mesh, lr=1e-3, grad_accum=2)
+    ustep, _, uopt = build_train_step(cfg, shape, lr=1e-3, device="cuda",
+                                      grad_accum=2)
     up = lm.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
                         cuda_device)
     dp = rules.place_as(tree_map(torch.clone, up), p_sds)
     do, uo = rules.zeros(o_sds), uopt.init(up)
+    g = torch.Generator().manual_seed(4)
     for i in range(2):
         batch = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=g
                                   ).to(cuda_device)
                  for k in ("tokens", "labels")}
-        c0 = counts()
         up, uo, um = ustep(up, uo, batch)
-        plain = {k: v - c0[k] for k, v in counts().items()}
-        c0 = counts()
         dp, do, m = step(dp, do, rules.place_as(batch, b_sds))
-        assert {k: v - c0[k] for k, v in counts().items()} == plain
-        for k in ("loss", "gnorm"):
+        assert set(m) == set(um) == {"loss", "gnorm"}
+        for k in um:
             assert torch.equal(m[k], um[k]), (i, k)
     for (path, a), (_, b) in zip(tree_paths({"p": dp, "o": do}),
                                  tree_paths({"p": up, "o": uo})):
@@ -1486,56 +1583,81 @@ def test_cuda_mesh_builders_bit_identical_at_one_rank(cuda_device, arch):
 @pytest.mark.cuda
 def test_cuda_machine_gloo_mesh_matches_the_unsharded_port(cuda_device,
                                                            tmp_path):
-    """tests/sharding_ranks.py under this machine's torch: internlm2-1.8b's
-    and mamba2-780m's smoke variants (float32 compute) on 4 gloo CPU ranks
-    forming a (2, 2) mesh, prefill + 2 decode steps + 2 train steps, held
-    to the port's unsharded run of the same inputs: serving within 2e-4
-    (and 2e-4 of a leaf's largest), the steps by tests/adam_close.py (loss
-    rtol 1e-5, gnorm 1e-4). The collectives reorder float32 sums."""
+    """tests/sharding_ranks.py under this machine's torch: every family's
+    smoke variant (float32 compute) on 4 gloo CPU ranks forming a (2, 2)
+    mesh, prefill + 2 decode steps + 2 train steps: internlm2-1.8b,
+    mamba2-780m, granite-moe-1b-a400m (EP), grok-1-314b at tp_multiple=8
+    (TP), zamba2-7b, the vlm (img_embed) and seamless (frames), held to the
+    port's unsharded run of the same inputs (MoE in the same dispatch
+    groups, one a data shard): serving within 2e-4 (and 2e-4 of a leaf's
+    largest), the steps by tests/adam_close.py (loss and lb rtol 1e-5,
+    gnorm 1e-4), MoE's drop shares to 1e-6. The collectives reorder
+    float32 sums."""
+    import dataclasses
     import os
     import subprocess
     import sys
 
     from adam_close import close_state
     from repro_torch.configs import get_config, smoke_variant
-    from repro_torch.models import lm
+    from repro_torch.train.steps import model_of
     from repro_torch.utils import tree_paths
-    archs = ["internlm2-1.8b", "mamba2-780m"]
+    sys.path.insert(0, os.path.dirname(__file__))
+    from sharding_ranks import parse_key
+    keys = ["internlm2-1.8b", "mamba2-780m", "granite-moe-1b-a400m",
+            "grok-1-314b+tp8", "zamba2-7b", "llama-3.2-vision-90b",
+            "seamless-m4t-large-v2"]
     rng = np.random.default_rng(5)
-    inp = {"arch": np.array(archs)}
-    for arch in archs:
-        cfg = smoke_variant(get_config(arch))
-        p = lm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    inp = {"arch": np.array(keys)}
+    for key in keys:
+        arch, kw = parse_key(key)
+        cfg = dataclasses.replace(smoke_variant(get_config(arch)), **kw)
+        p = model_of(cfg).init_params(torch.Generator().manual_seed(0), cfg,
+                                      "cpu")
         for path, t in tree_paths(p):
-            inp[f"{arch}/serve/{path}"] = t.float().numpy()
-            inp[f"{arch}/train/{path}"] = t.float().numpy()
-        inp[f"{arch}/prompt"] = rng.integers(0, cfg.vocab_size, (4, 16))
-        inp[f"{arch}/decode"] = rng.integers(0, cfg.vocab_size, (2, 4, 1))
+            inp[f"{key}/serve/{path}"] = t.float().numpy()
+            inp[f"{key}/train/{path}"] = t.float().numpy()
+        inp[f"{key}/prompt"] = rng.integers(0, cfg.vocab_size, (4, 16))
+        inp[f"{key}/decode"] = rng.integers(0, cfg.vocab_size, (2, 4, 1))
+        extra = {"img_embed": (4, cfg.n_image_tokens, cfg.vision_dim)
+                 if cfg.family == "vlm" else None,
+                 "frames": (4, 16, cfg.d_model) if cfg.is_encdec else None}
+        for k, shape in extra.items():
+            if shape:
+                inp[f"{key}/{k}"] = rng.standard_normal(shape).astype(
+                    np.float32)
         for i in range(2):
             for k in ("tokens", "labels"):
-                inp[f"{arch}/batch{i}/{k}"] = rng.integers(
+                inp[f"{key}/batch{i}/{k}"] = rng.integers(
                     0, cfg.vocab_size, (4, 64))
+            for k, shape in extra.items():
+                if shape:
+                    inp[f"{key}/batch{i}/{k}"] = rng.standard_normal(
+                        shape[:1] + (64,) + shape[2:] if k == "frames"
+                        else shape).astype(np.float32)
     src, dst = tmp_path / "in.npz", tmp_path / "out.npz"
     np.savez(src, **inp)
     here = os.path.dirname(__file__)
     r = subprocess.run([sys.executable, os.path.join(here,
                                                      "sharding_ranks.py"),
                         str(src), str(dst), "--plain"], capture_output=True,
-                       text=True, timeout=600)
+                       text=True, timeout=900)
     assert r.returncode == 0, r.stderr[-4000:]
     z = dict(np.load(dst))
-    for arch in archs:
-        keys = [k[len(f"plain/{arch}/"):] for k in z
-                if k.startswith(f"plain/{arch}/")]
-        assert keys
-        for k in keys:
+    for key in keys:
+        names = [k[len(f"plain/{key}/"):] for k in z
+                 if k.startswith(f"plain/{key}/")]
+        assert names
+        for k in names:
             if "/" in k and k.split("/")[0].startswith("step"):
                 continue
-            got, want = z[f"{arch}/{k}"], z[f"plain/{arch}/{k}"]
-            if k.startswith("loss"):
-                np.testing.assert_allclose(got, want, rtol=1e-5)
+            got, want = z[f"{key}/{k}"], z[f"plain/{key}/{k}"]
+            if k.startswith(("loss", "lb")):
+                np.testing.assert_allclose(got, want, rtol=1e-5, err_msg=k)
             elif k.startswith("gnorm"):
                 np.testing.assert_allclose(got, want, rtol=1e-4)
+            elif k.startswith("drop"):
+                np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
             else:
                 np.testing.assert_allclose(
                     got, want, rtol=2e-4,
@@ -1543,9 +1665,9 @@ def test_cuda_machine_gloo_mesh_matches_the_unsharded_port(cuda_device,
         carry = {}
         for i in range(2):
             pre = f"step{i}/"
-            got = {k[len(f"{arch}/{pre}"):]: v for k, v in z.items()
-                   if k.startswith(f"{arch}/{pre}")}
-            want = {k[len(f"plain/{arch}/{pre}"):]: v for k, v in z.items()
-                    if k.startswith(f"plain/{arch}/{pre}")}
+            got = {k[len(f"{key}/{pre}"):]: v for k, v in z.items()
+                   if k.startswith(f"{key}/{pre}")}
+            want = {k[len(f"plain/{key}/{pre}"):]: v for k, v in z.items()
+                    if k.startswith(f"plain/{key}/{pre}")}
             assert got and set(got) == set(want)
             close_state(got, want, i + 1, 1e-3, carry)

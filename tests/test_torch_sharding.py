@@ -308,7 +308,8 @@ def test_production_mesh_needs_its_ranks():
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "mamba2-780m",
-                                  "llama-3.2-vision-90b",
+                                  "granite-moe-1b-a400m", "grok-1-314b",
+                                  "zamba2-7b", "llama-3.2-vision-90b",
                                   "seamless-m4t-large-v2",
                                   "internlm2-1.8b+pad"])
 def test_builders_at_one_rank_are_bit_identical(arch):
@@ -316,8 +317,11 @@ def test_builders_at_one_rank_are_bit_identical(arch):
     aten ops see the same tensors: build_prefill_step (with img_embed /
     frames), two build_serve_step steps and two build_train_step steps
     give the unsharded path's bits (logits, every cache leaf, loss,
-    gnorm, every param and moment). ``+pad``: a vocabulary of 250 padded
-    to 256 (the logits' pad mask on a DTensor)."""
+    gnorm, every param and moment). MoE runs its per-rank dispatch
+    (``moe._moe_on_mesh``) in one group, the hybrid its shared block once
+    a group and its SSM cache with batch on axis 2. ``+pad``: a
+    vocabulary of 250 padded to 256 (the logits' pad mask on a
+    DTensor)."""
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import encdec, lm
     from repro_torch.serve.steps import (build_prefill_step, build_serve_step,
